@@ -1,4 +1,4 @@
-"""ROVINA semantic segmentation, rebuilt TPU-native.
+"""ROVINA semantic segmentation, rebuilt on JAX for the GPU.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of
 VisualComputingInstitute/RovinaSemanticSegmentation: per-pixel RGB-D feature
@@ -7,12 +7,12 @@ smoothing over local-map point clouds (permutohedral lattice), map fusion, and
 the segmentation service API.
 
 The reference stack is C++/OpenCV/PCL/ROS; this framework re-designs every
-component for TPUs:
+component as static-shape array programs:
 
 - features: fused, batched XLA preprocessing (``features/``, ``ops/``)
-- random forest: structure-of-arrays tensors + Pallas traversal kernels
-  (``models/forest.py``, ``ops/forest_kernels.py``)
-- dense CRF: static-shape permutohedral lattice + Pallas splat/blur/slice
+- random forest: structure-of-arrays tensors + a Pallas (Triton) descent
+  kernel on the GPU (``models/forest.py``, ``ops/forest_pallas.py``)
+- dense CRF: static-shape permutohedral lattice + jitted splat/blur/slice
   (``models/crf.py``, ``models/lattice.py``)
 - training: breadth-first, sort-based exact split search batched over frontier
   nodes (``train/``)

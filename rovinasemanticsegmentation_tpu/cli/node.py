@@ -29,6 +29,7 @@ from ..serve.services import (
     SegmentationServiceServer,
     heuristic_single_frame_segmentation,
 )
+from ..utils.compile_cache import setup_compile_cache
 from ..utils.config import Config, parse_cli_overrides
 
 
@@ -66,6 +67,7 @@ def main(argv=None) -> None:
             "[--forest <forest.dat>] [--external_semantics bool] [--port N]"
         )
     port = int(params.pop("port", "8090"))
+    setup_compile_cache()
     segmenter = build_segmenter(params)
     server = SegmentationServiceServer(segmenter, port=port)
     server.start()

@@ -11,7 +11,7 @@ per-pixel C++ loops into dense tensor ops over the full stride grid:
 - feature vector layout matches :47-51: ``[R*R*3 Lab patch | depth | height |
   normal angle]`` with the same config gating;
 - Lab conversion + reflect padding (:129-130), depth-adaptive patch resize
-  (:140-142 -> ``ops/patches.py``), raw depth in meters (:187-189), height =
+  (:140-142 -> ``ops/patches.py``, one 4-tap gather per output pixel), raw depth in meters (:187-189), height =
   world z of the backprojection (:200-251 -> ``ops/geometry.py``), normal
   angle ``acos(|n_z|)`` with NaN -> -2 (:254-291 -> ``ops/normals.py``).
 
@@ -31,12 +31,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.color import rgb_to_lab8, warm_lab_tables
+from ..ops.color import rgb_to_lab8
 from ..ops.geometry import backproject, depth_valid_mask
 from ..ops.normals import normal_angles_grid
-from ..ops.patches import extract_patches, reflect_pad_image
-from ..ops.patches_pallas import extract_patches_pallas
-from ..ops.patches_scan import extract_patches_scan
+from ..ops.patches import extract_patches_grid, reflect_pad_image
 from ..utils.calibration import Calibration
 from ..utils.config import Config
 
@@ -150,28 +148,11 @@ def _extract_impl(
     if use_color_patch:
         lab = rgb_to_lab8(rgb)  # BGR2Lab-on-RGB quirk preserved
         padded = reflect_pad_image(lab, patch_size)
-        # Three bit-exact implementations exist (ops/patches*.py); the
-        # Pallas block-local kernel wins on TPU, the dense-slice scan on
-        # CPU. The kernel's phase-split scratch layout needs the column
-        # phase count (= stride) to divide the 8-sublane tile, so odd
-        # strides (e.g. the training stride 5, config.json:33) take the
-        # scan path.
         depth_grid = jnp.where(mask, depth_m, 0.0).reshape(gys.size, gxs.size)
-        if jax.default_backend() == "tpu" and stride in (1, 2, 4, 8):
-            from ..utils import tuning
-
-            patches = extract_patches_pallas(
-                padded, depth_grid,
-                patch_size=patch_size, reduce_size=reduce_size, stride=stride,
-                rows_per_program=int(
-                    tuning.get("patches_rows_per_program", 8)
-                ),
-            )
-        else:
-            patches = extract_patches_scan(
-                padded, depth_grid,
-                patch_size=patch_size, reduce_size=reduce_size, stride=stride,
-            )
+        patches = extract_patches_grid(
+            padded, depth_grid,
+            patch_size=patch_size, reduce_size=reduce_size, stride=stride,
+        )
         parts.append(
             patches.reshape(xs.shape[0], reduce_size * reduce_size * 3).astype(
                 jnp.float32
@@ -203,7 +184,6 @@ class FeatureExtractor:
 
     def __init__(self, config: FeatureConfig):
         self.config = config
-        warm_lab_tables()  # measure VPU Lab corrections outside any trace
 
     def extract(
         self,

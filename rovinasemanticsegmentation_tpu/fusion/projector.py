@@ -1,6 +1,6 @@
 """Z-buffered projection of map point clouds into camera images.
 
-TPU equivalent of fps_mapper's ``MultiProjector::project`` used at
+Array-program equivalent of fps_mapper's ``MultiProjector::project`` used at
 ``/root/reference/src/segmenter.cpp:578``: given a local-map cloud and a
 keyframe pose, produce (a) a z-buffer and (b) an index image mapping each
 pixel of the (vertically stacked) multi-camera image to the nearest cloud
@@ -131,9 +131,9 @@ def project_winners(
     on. Each point occupies exactly one pixel per camera, so fusion needs no
     index IMAGE at all: a gather of the winner pixels' posteriors replaces
     the reference's per-pixel accumulation loop (segmenter.cpp:589-616).
-    Implementation is sort-based (sorts are cheap on TPU, scatters cost
-    ~25 ns/row): lexicographic sort by (pixel, depth, slot) puts each
-    pixel's winner first in its run.
+    Implementation is sort-based: lexicographic sort by (pixel, depth,
+    slot) puts each pixel's winner first in its run. Whether a scatter-min
+    is faster on the GPU is not measured yet (ROADMAP S7).
     """
     ncam = rotation_inv.shape[0]
     n = points.shape[0]

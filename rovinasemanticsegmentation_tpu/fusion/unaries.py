@@ -1,6 +1,6 @@
 """Accumulation of per-frame posteriors into per-point map unaries.
 
-TPU scatter-add equivalent of the fusion inner loop
+Scatter-add equivalent of the fusion inner loop
 (``/root/reference/src/segmenter.cpp:599-616``): for each camera's index
 image, every pixel that hit a cloud point adds its per-class posterior to
 that point's unary row. Missing frames simply contribute nothing

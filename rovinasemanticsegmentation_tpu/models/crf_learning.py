@@ -116,7 +116,9 @@ class LogisticUnaryEnergy:
 
     def get(self, params: Optional[jnp.ndarray] = None) -> jnp.ndarray:
         l = self._l0 if params is None else params
-        return self.features @ l.T  # [N, C]
+        return jnp.matmul(  # [N, C]; HIGHEST keeps float32 off TF32
+            self.features, l.T, precision=jax.lax.Precision.HIGHEST
+        )
 
     def init_params(self) -> jnp.ndarray:
         return self._l0
@@ -389,7 +391,9 @@ class FullKernelCrfLearner(_KernelCrfLearner):
 
     @staticmethod
     def _transform(base: jnp.ndarray, params: jnp.ndarray) -> jnp.ndarray:
-        return base @ params.T
+        return jnp.matmul(
+            base, params.T, precision=jax.lax.Precision.HIGHEST
+        )
 
     def fit(
         self,

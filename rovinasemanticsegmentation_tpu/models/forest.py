@@ -1,6 +1,6 @@
 """Multi-label random forest as structure-of-arrays tensors.
 
-TPU-native re-design of the edited-libforest classifier
+Array re-design of the edited-libforest classifier
 (``/root/reference/third-party/libforest/include/libforest/classifiers.h:62-344``,
 ``/root/reference/third-party/libforest/src/classifier.cpp:57-235``).
 
@@ -9,7 +9,7 @@ The reference stores each tree as parallel vectors ``splitFeatures``,
 means leaf, classifiers.h:191-206) plus per-leaf single-layer log-histograms
 and multi-layer ``multi_histograms[node][layer][class]``. Here those become
 dense, tree-padded arrays so a whole batch of points traverses all trees in
-one fused XLA/Pallas computation:
+one fused XLA computation (or the Pallas descent of ``ops/forest_pallas.py``):
 
 - ``split_feature``  int32  [T, N]
 - ``threshold``      float32[T, N]
@@ -164,8 +164,8 @@ def pack_node_records(
     """Pack (feat | left << bits, threshold-bits) into one [T, 2N] i32 array.
 
     Traversal then needs two gathers per level instead of four — the node's
-    metadata and threshold live in adjacent lanes of one record table
-    (measured ~20% faster than separate-table gathers on v5e).
+    metadata and threshold sit side by side in one record table, in the
+    same cache line.
     """
     t, n = split_feature.shape
     bits = _feature_bits(int(split_feature.max()) + 2)
@@ -263,40 +263,10 @@ def _sum_leaf_histograms(
 ) -> jnp.ndarray:
     """Gather per-tree leaf log-histograms and sum (classifier.cpp:187-208).
 
-    Three bit-exact layouts (identical f32 sum order over trees), selected
-    by the measured-variant registry key ``hist_gather`` (env
-    ``ROVINA_HIST_GATHER`` > TUNING.json > ``"row"``); the winner is
-    recorded by ``scripts/exp_hist.py bench`` from compiled TPU slopes:
-
-    - ``"row"``: per-tree vmap'd row gather from [N, L*C] tables. Every
-      gathered row touches a whole [8, 128] f32 tile, so at L*C ~ 17 of
-      128 lanes ~87% of the moved bytes are waste.
-    - ``"global"``: one gather from the [T*N, L*C] concatenated table
-      with ``leaf + t*N`` global ids (one big gather op instead of T).
-    - ``"transposed"``: tables transposed to [T, L*C, N] (channels on
-      sublanes) and gathered along LANES per point id — the same
-      lane-layout lever that won the CRF mean-field (ROADMAP round 2).
-      The [T, N, L*C] -> [T, L*C, N] transpose rides inside the jit: the
-      table is ~3 MB (HBM-trivial) vs ~1.2 GB of gather traffic.
+    One row gather per tree from its [N, L*C] table.
     """
-    from ..utils import tuning
-
     num_trees, n, num_layers, c = leaf_hist.shape
-    lc = num_layers * c
-    flat = leaf_hist.reshape(num_trees, n, lc)
-    variant = tuning.get("hist_gather", "row")
-    if variant == "global":
-        gids = leaves + (jnp.arange(num_trees, dtype=jnp.int32) * n)[None, :]
-        rows = jnp.take(flat.reshape(num_trees * n, lc), gids.reshape(-1), axis=0)
-        return rows.reshape(-1, num_trees, lc).sum(axis=1).reshape(
-            -1, num_layers, c
-        )
-    if variant == "transposed":
-        hist_t = jnp.transpose(flat, (0, 2, 1))  # [T, L*C, N]
-        gathered = jax.vmap(
-            lambda h, idx: jnp.take(h, idx, axis=1), in_axes=(0, 1)
-        )(hist_t, leaves)  # [T, L*C, P]
-        return gathered.sum(axis=0).T.reshape(-1, num_layers, c)
+    flat = leaf_hist.reshape(num_trees, n, num_layers * c)
     gathered = jax.vmap(lambda h, idx: jnp.take(h, idx, axis=0), in_axes=(0, 1))(
         flat, leaves
     )  # [T, P, L*C]

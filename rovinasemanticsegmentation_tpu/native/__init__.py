@@ -2,16 +2,22 @@
 
 The reference's runtime is C++; here the host-side irregular work (lattice
 hash-table build, forest.dat decode) is C++ too, loaded through ctypes. The
-library builds on first use with g++ (no pybind11 in this image); every entry
-point has a NumPy fallback so the framework works without a toolchain.
+library is built from the committed sources with g++ on first use, into
+``native/build/`` (git-ignored), under a name keyed by a hash of the sources
+and the compiler command: a stale or foreign binary is never loaded, and the
+build targets the generic x86-64/aarch64 instruction set, so a library built
+on one host runs on any other. Every entry point has a NumPy fallback, so the
+framework works without a toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional, Tuple
 
@@ -20,24 +26,45 @@ import numpy as np
 log = logging.getLogger(__name__)
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_LIB_PATH = os.path.join(_DIR, "librovina_native.so")
+BUILD_DIR = os.path.join(_DIR, "build")
 _SOURCES = ["lattice_builder.cpp", "forest_codec.cpp"]
+_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        "-o", _LIB_PATH,
-    ] + [os.path.join(_DIR, s) for s in _SOURCES]
+def source_hash() -> str:
+    """Hash of the sources and the compiler flags that build the library."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SOURCES:
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def lib_path() -> str:
+    return os.path.join(BUILD_DIR, f"librovina_native-{source_hash()}.so")
+
+
+def _build(path: str) -> bool:
+    """Compile into a temporary file, then rename it into place, so
+    concurrent processes never load a half-written library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = ["g++", *_FLAGS, "-o", tmp] + [
+        os.path.join(_DIR, s) for s in _SOURCES
+    ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        os.replace(tmp, path)
         return True
-    except (subprocess.SubprocessError, FileNotFoundError) as e:
+    except (subprocess.SubprocessError, OSError) as e:
         log.warning("native build failed, using Python fallbacks: %s", e)
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         return False
 
 
@@ -48,20 +75,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
-            src_newest = max(
-                os.path.getmtime(os.path.join(_DIR, s)) for s in _SOURCES
-            )
-            if not _build():
-                return None
-        else:
-            src_newest = max(
-                os.path.getmtime(os.path.join(_DIR, s)) for s in _SOURCES
-            )
-            if os.path.getmtime(_LIB_PATH) < src_newest and not _build():
-                return None
+        path = lib_path()
+        if not os.path.exists(path) and not _build(path):
+            return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(path)
         except OSError as e:
             log.warning("native load failed: %s", e)
             return None

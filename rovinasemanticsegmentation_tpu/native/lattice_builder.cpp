@@ -3,7 +3,7 @@
 // Host-side companion to models/lattice.py: the per-map lattice build
 // (embedding, rounding, rank, barycentric, vertex dedup, blur-neighbor
 // table) is irregular pointer-chasing work that belongs on the CPU; the
-// per-iteration filtering runs on TPU. This C++ implementation replaces the
+// per-iteration filtering runs on the device. This C++ implementation replaces the
 // NumPy sort/unique path with an open-addressing hash table, cutting the
 // build from O(N (d+1) log) sorting to O(N (d+1)) expected.
 //

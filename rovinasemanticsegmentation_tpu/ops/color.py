@@ -27,9 +27,6 @@ cv::Mat (``src/train.cpp:115-124``).
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -98,83 +95,14 @@ def _descale(v: jnp.ndarray, n: int) -> jnp.ndarray:
     return (v + (1 << (n - 1))) >> n
 
 
-def _gamma_formula(i: jnp.ndarray) -> jnp.ndarray:
-    """The gamma table's generating formula, on-device in float32."""
-    x = i.astype(jnp.float32) / jnp.float32(255.0)
-    lo = x / jnp.float32(12.92)
-    hi = jnp.power((x + jnp.float32(0.055)) / jnp.float32(1.055), jnp.float32(2.4))
-    v = jnp.where(x <= jnp.float32(809.0 / 20000.0), lo, hi)
-    return jnp.rint(jnp.float32(255 << _GAMMA_SHIFT) * v).astype(jnp.int32)
-
-
-def _cbrt_formula(i: jnp.ndarray) -> jnp.ndarray:
-    """The cube-root table's generating formula, on-device in float32."""
-    x = i.astype(jnp.float32) / jnp.float32(255 << _GAMMA_SHIFT)
-    flo = x * jnp.float32(7.787) + jnp.float32(16.0 / 116.0)
-    fhi = jnp.cbrt(x)
-    v = jnp.where(x < jnp.float32(0.008856), flo, fhi)
-    return jnp.rint(jnp.float32(1 << _LAB_SHIFT2) * v).astype(jnp.int32)
-
-
-@functools.lru_cache(maxsize=None)
-def _vpu_lab_corrections(backend: str):
-    """Entries where the on-device float32 formulas disagree with the tables.
-
-    TPU gathers from the 256/3072-entry Lab tables cost ~14 ms per VGA
-    frame; evaluating the generating formulas per pixel on the VPU is ~50x
-    cheaper but transcendental rounding may flip a few round-half entries
-    (4 of 3072 cbrt entries on the current XLA:TPU). This measures the
-    actual device's disagreements ONCE per process and returns (index,
-    value) patch lists, keeping the pipeline bit-exact by construction on
-    ANY compiler version. Returns None (= use gathers) if the device
-    drifts beyond a handful of entries.
-    """
-    g_dev = np.asarray(jax.jit(_gamma_formula)(jnp.arange(256, dtype=jnp.int32)))
-    c_dev = np.asarray(
-        jax.jit(_cbrt_formula)(jnp.arange(_CBRT_TAB.size, dtype=jnp.int32))
-    )
-    g_fix = np.nonzero(g_dev != _GAMMA_TAB)[0]
-    c_fix = np.nonzero(c_dev != _CBRT_TAB)[0]
-    if g_fix.size > 16 or c_fix.size > 16:
-        return None
-    return (
-        tuple((int(i), int(_GAMMA_TAB[i])) for i in g_fix),
-        tuple((int(i), int(_CBRT_TAB[i])) for i in c_fix),
-    )
-
-
-def _gamma_lookup(i: jnp.ndarray, fixes) -> jnp.ndarray:
-    out = _gamma_formula(i)
-    for idx, val in fixes:
-        out = jnp.where(i == idx, jnp.int32(val), out)
-    return out
-
-
-def _cbrt_lookup(i: jnp.ndarray, fixes) -> jnp.ndarray:
-    out = _cbrt_formula(i)
-    for idx, val in fixes:
-        out = jnp.where(i == idx, jnp.int32(val), out)
-    return out
-
-
-def warm_lab_tables() -> None:
-    """Measure the device-formula corrections now (must be called eagerly)."""
-    if jax.default_backend() == "tpu":
-        _vpu_lab_corrections("tpu")
-
-
 def rgb_to_lab8(image: jnp.ndarray, swap: bool = True) -> jnp.ndarray:
     """[..., 3] uint8 -> [..., 3] uint8 Lab (L*255/100, a+128, b+128).
 
     With ``swap=True`` (default) channel 0 is fed to OpenCV's blue slot,
     reproducing the reference's BGR2Lab-on-RGB behavior
     (feature_extractor.h:129 applied to the RGB image of train.cpp:123).
-    Bit-exact with ``cv2.cvtColor(..., COLOR_BGR2Lab)``.
-
-    On TPU the table lookups are evaluated as per-pixel VPU formulas with
-    measured per-entry corrections (see :func:`_vpu_lab_corrections`);
-    elsewhere (and as the fallback) they are plain gathers. Both paths
-    produce identical bytes.
+    Bit-exact with ``cv2.cvtColor(..., COLOR_BGR2Lab)``. The 256- and
+    3072-entry tables (13 KB) are gathered per pixel; they stay in cache.
     """
     img = image.astype(jnp.int32)
     if swap:
@@ -182,35 +110,16 @@ def rgb_to_lab8(image: jnp.ndarray, swap: bool = True) -> jnp.ndarray:
     else:
         r8, g8, b8 = img[..., 0], img[..., 1], img[..., 2]
 
-    fixes = None
-    if jax.default_backend() == "tpu":
-        try:
-            # Measuring corrections runs eager device code; inside a jit
-            # trace that would concretize tracers. warm_lab_tables() from
-            # an eager context (extractor/pipeline constructors do) makes
-            # the lru_cache hit here; a cold call inside a trace falls
-            # back to the gather path (identical bytes, slower).
-            fixes = _vpu_lab_corrections("tpu")
-        except Exception:
-            fixes = None
-    if fixes is not None:
-        g_fix, c_fix = fixes
-        r = _gamma_lookup(r8, g_fix)
-        g = _gamma_lookup(g8, g_fix)
-        b = _gamma_lookup(b8, g_fix)
-        take_cbrt = lambda i: _cbrt_lookup(i, c_fix)  # noqa: E731
-    else:
-        gamma = jnp.asarray(_GAMMA_TAB)
-        cbrt = jnp.asarray(_CBRT_TAB)
-        r = jnp.take(gamma, r8)
-        g = jnp.take(gamma, g8)
-        b = jnp.take(gamma, b8)
-        take_cbrt = lambda i: jnp.take(cbrt, i)  # noqa: E731
+    gamma = jnp.asarray(_GAMMA_TAB)
+    cbrt = jnp.asarray(_CBRT_TAB)
+    r = jnp.take(gamma, r8)
+    g = jnp.take(gamma, g8)
+    b = jnp.take(gamma, b8)
 
     c = _COEFFS
-    fx = take_cbrt(_descale(r * c[0, 0] + g * c[0, 1] + b * c[0, 2], _LAB_SHIFT))
-    fy = take_cbrt(_descale(r * c[1, 0] + g * c[1, 1] + b * c[1, 2], _LAB_SHIFT))
-    fz = take_cbrt(_descale(r * c[2, 0] + g * c[2, 1] + b * c[2, 2], _LAB_SHIFT))
+    fx = jnp.take(cbrt, _descale(r * c[0, 0] + g * c[0, 1] + b * c[0, 2], _LAB_SHIFT))
+    fy = jnp.take(cbrt, _descale(r * c[1, 0] + g * c[1, 1] + b * c[1, 2], _LAB_SHIFT))
+    fz = jnp.take(cbrt, _descale(r * c[2, 0] + g * c[2, 1] + b * c[2, 2], _LAB_SHIFT))
 
     l_val = _descale(_L_SCALE * fy + _L_SHIFT, _LAB_SHIFT2)
     a_val = _descale(500 * (fx - fy) + (128 << _LAB_SHIFT2), _LAB_SHIFT2)

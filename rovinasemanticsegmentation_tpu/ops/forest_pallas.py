@@ -1,469 +1,157 @@
-"""Pallas TPU kernel for random-forest descent.
+"""Random-forest descent as a Pallas kernel for the GPU (Triton route).
 
-XLA lowers random gathers at ~12-16ns/element, which makes tree traversal
-(2 gathers x 31 levels x P points x T trees) the pipeline bottleneck. This
-kernel reaches the VPU's vectorized ``dynamic_gather`` (Mosaic's
-same-shape ``take_along_axis(axis=1)`` over 128 lanes) by re-laying the
-trees out level-major:
+The plain form, :func:`models.forest._find_leaves_packed`, is a
+``lax.while_loop`` over tree levels whose predicate depends on the data;
+every level runs as separate XLA kernels plus a device-to-host copy of the
+predicate. This kernel keeps the whole descent of a block of points on the
+chip instead:
 
-- nodes are renumbered breadth-first, so the nodes of depth ``l`` occupy one
-  contiguous, 128-padded span of the arrays (``level_offsets``/
-  ``level_chunks``);
-- a point's node id at level ``l`` is local to that span; the node record
-  (packed meta + threshold) is fetched by sweeping the span's 128-wide
-  chunks with lane-gathers and masked selects — the sweep over all levels
-  touches each tree chunk once (sum of level widths = node count), so the
-  whole descent costs O(N/128) vector ops per point tile instead of O(P)
-  scalar gathers;
-- the per-point feature lookup ``x[p, f]`` is three lane-gathers over the
-  point tile's 128-wide feature chunks.
+- one program per power-of-two block of points; each of the T trees' node
+  ids for the block lives in registers;
+- the level loop runs inside the kernel, ``max_depth`` levels;
+- node records (the packed ``feat | left << bits`` word and the threshold
+  bits, :func:`models.forest.pack_node_records`, a few hundred KB for a
+  trained forest, so they stay in L2) and ``x[p, f]`` are fetched with
+  gather loads.
 
-The tree data (meta [T, Np], thresholds [T, Np], both level-major) lives in
-VMEM for the whole grid; feature tiles stream per program. Output leaf ids
-are in the level-major numbering — callers gather histograms reordered the
-same way (``LevelMajorForest``).
+The leaf ids are the original node numbering, so the leaf histograms are
+gathered exactly as after the plain descent.
+
+:func:`select_descent` picks the descent once per pipeline from the
+platform it runs on; the CPU takes the plain path, and the kernel runs
+there only when a caller asks for ``interpret=True``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from functools import partial
-from typing import List, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..models.forest import Forest, _feature_bits
+from ..models.forest import _find_leaves_packed
 
-LANES = 128
+DESCENTS = ("xla", "triton")
 
-
-@dataclass
-class LevelMajorForest:
-    """Trees renumbered breadth-first with 128-padded levels."""
-
-    meta: np.ndarray  # [T, Np] i32: feat | (left_child_new << feat_bits); 0 left = leaf
-    thresholds: np.ndarray  # [T, Np] f32
-    leaf_hist: np.ndarray  # [T, Np, L, C] reordered to match
-    level_offsets: np.ndarray  # [T, max_levels] i32, in 128-chunk units
-    level_chunks: np.ndarray  # [T, max_levels] i32 number of 128-chunks
-    num_levels: int
-    feat_bits: int
-    class_counts: Tuple[int, ...]
-
-    @property
-    def padded_nodes(self) -> int:
-        return self.meta.shape[1]
+#: Points per program and warps per program of the descent kernel, the
+#: fastest of 32..256 points and 1..8 warps on an H100 (PERF.md).
+BLOCK = 32
+NUM_WARPS = 1
 
 
-def build_level_major(forest: Forest) -> LevelMajorForest:
-    """Reorder a Forest's trees level-major with 128-aligned levels."""
-    t_count = forest.num_trees
-    feat_bits = _feature_bits(int(forest.split_feature.max()) + 2)
-    num_layers = forest.num_layers
-    c_max = forest.leaf_hist.shape[3]
-
-    per_tree = []
-    max_levels = 1
-    max_padded = LANES
-    for t in range(t_count):
-        view = forest.tree_view(t)
-        n = len(view.split_feature)
-        depth = np.zeros(n, np.int32)
-        for node in range(n):
-            l = view.left_child[node]
-            if l != 0:
-                depth[l] = depth[node] + 1
-                depth[l + 1] = depth[node] + 1
-        levels = int(depth.max()) + 1
-        # Stable order by depth keeps sibling pairs adjacent (children are
-        # created together so left/right stay consecutive).
-        order = np.argsort(depth, kind="stable")  # old ids in new order
-        widths = np.bincount(depth, minlength=levels)
-        chunks = -(-widths // LANES)
-        offsets_c = np.zeros(levels, np.int64)  # in chunk units
-        np.cumsum(chunks[:-1], out=offsets_c[1:])
-        offsets = offsets_c * LANES
-        padded_total = int((chunks * LANES).sum())
-
-        # Position within padded numbering: offset of level + rank in level.
-        rank_in_level = np.empty(n, np.int64)
-        start = 0
-        for l in range(levels):
-            cnt = widths[l]
-            rank_in_level[order[start : start + cnt]] = np.arange(cnt)
-            start += cnt
-        padded_new = offsets[depth] + rank_in_level  # per old id
-
-        meta = np.zeros(padded_total, np.int32)
-        thr = np.zeros(padded_total, np.float32)
-        hist = np.zeros((padded_total, num_layers, c_max), np.float32)
-        left_new = np.zeros(n, np.int64)
-        has_child = view.left_child != 0
-        left_new[has_child] = padded_new[view.left_child[has_child]]
-        meta[padded_new] = view.split_feature.astype(np.int32) | (
-            left_new.astype(np.int32) << feat_bits
-        )
-        thr[padded_new] = view.threshold
-        hist[padded_new] = view.leaf_hist
-        per_tree.append((meta, thr, hist, offsets, chunks, levels))
-        max_levels = max(max_levels, levels)
-        max_padded = max(max_padded, padded_total)
-
-    meta_all = np.zeros((t_count, max_padded), np.int32)
-    thr_all = np.zeros((t_count, max_padded), np.float32)
-    hist_all = np.zeros((t_count, max_padded, num_layers, c_max), np.float32)
-    off_all = np.zeros((t_count, max_levels), np.int32)
-    chunks_all = np.zeros((t_count, max_levels), np.int32)
-    for t, (meta, thr, hist, offsets, chunks, levels) in enumerate(per_tree):
-        meta_all[t, : len(meta)] = meta
-        thr_all[t, : len(thr)] = thr
-        hist_all[t, : len(hist)] = hist
-        off_all[t, :levels] = offsets // LANES
-        chunks_all[t, :levels] = chunks
-
-    return LevelMajorForest(
-        meta=meta_all,
-        thresholds=thr_all,
-        leaf_hist=hist_all,
-        level_offsets=off_all,
-        level_chunks=chunks_all,
-        num_levels=max_levels,
-        feat_bits=feat_bits,
-        class_counts=tuple(forest.class_counts),
-    )
+def select_descent(platform: str) -> str:
+    """The descent a pipeline on ``platform`` runs: the kernel on the GPU,
+    the plain XLA loop on the CPU (tests). Any other platform is an error."""
+    if platform == "gpu":
+        return "triton"
+    if platform == "cpu":
+        return "xla"
+    raise ValueError(f"no forest descent for platform {platform!r}")
 
 
 def _descent_kernel(
-    off_ref,  # SMEM [T, LV] level offsets (in 128-chunk units)
-    nch_ref,  # SMEM [T, LV] level chunk counts
-    feats_ref,  # VMEM [TILE, FC * 128] feature tile
-    meta_ref,  # VMEM [T, Np // 128, 128]
-    thr_ref,  # VMEM [T, Np // 128, 128]
-    out_ref,  # VMEM [TILE // 128, T * 128] leaf ids, points on lanes
+    x_ref,  # [P * D] f32 features, row-major
+    rec_ref,  # [T * N * 2] i32 packed node records
+    out_ref,  # [T, block] i32 leaf ids of this program's points
     *,
     num_trees: int,
-    num_levels: int,
+    num_nodes: int,
+    num_points: int,
+    num_features: int,
+    max_depth: int,
     feat_bits: int,
-    feat_chunks: int,
-    tile: int,
-    transpose_pack: bool = False,
+    block: int,
 ):
-    """Points-on-lanes descent: per-point state lives as [S, 128] vectors
-    (S = tile/128), so the chunk sweep costs ~1 vector op per chunk instead
-    of the 128x-replicated [tile, 128] formulation. Only the x[p, f] lookup
-    detours through the points-on-sublanes domain: f is up-converted with a
-    one-hot matmul + static lane-gather, the feature chunks are lane-gathered
-    there, and the scalar-per-point result reshapes back down ([tile, 1] ->
-    [S, 128] is a supported Mosaic relayout).
-
-    The level loop is OUTER and trees inner: all trees' feature indices at a
-    level pack into one [tile, 128] vector (tree t's index in lane t), so the
-    expensive [tile, 128]-domain feature gathers run once per level instead
-    of once per tree per level — measured 42 -> 29 ms for 76k points x 4
-    trees x 40k nodes on one v5e. The level loop is a while_loop that exits
-    as soon as every point of the tile sits on a leaf in every tree (most
-    leaves live around depth log2(nodes) ~ 15-17, far above max_depth=30;
-    29 -> 22 ms). (Rejected alternatives, measured: [tile,1] column
-    gathers — unsupported by Mosaic; one-hot compare/mult/reduce fetch —
-    43 ms; chunk-sweep unroll x2 — 567 ms(!); replacing the diag gather
-    with ``word.reshape(tile, 1)`` + lane broadcast — Mosaic rejects the
-    [S,128]->[tile,1] shape cast ("infer-vector-layout: unsupported"),
-    only the [tile,1]->[S,128] direction is supported; grandchild
-    stepping (2 levels/sweep via child records baked at the parent) —
-    17.2 vs 11.9 ms, the 3x sweep payload outweighs the halved x-lookup
-    rounds.)"""
+    pid = pl.program_id(0)
+    p = pid * block + jnp.arange(block, dtype=jnp.int32)
+    # Padding points re-read the last row; their ids are sliced off.
+    row = jnp.minimum(p, num_points - 1) * num_features
     fmask = (1 << feat_bits) - 1
-    s_rows = tile // LANES
 
-    # Constant helpers for the lanes <-> sublanes layout dance.
-    lane_of_p = (
-        jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 0) % LANES
-    )  # static per-row lane index p % 128
-    lane_id = jax.lax.broadcasted_iota(jnp.int32, (tile, LANES), 1)
-    eye = jnp.eye(LANES, dtype=jnp.float32) if transpose_pack else None
-
-    def level_cond(state):
-        l, active, _ = state
-        return (l < num_levels) & (active > 0)
-
-    max_chunk_idx = meta_ref.shape[1] - 1
-
-    def level_body(state):
-        l, _, nodes = state
-        # Sweep the level's chunks for the node records (cheap [S, 128]-
-        # domain ops; the sweep over all levels touches each tree chunk
-        # exactly once). ONE loop serves all trees — Mosaic's per-iteration
-        # loop overhead (~140 cycles) dwarfs the ~30 cycles of vector work
-        # per tree, so sharing it across trees cut the sweep 13 -> 5 ms.
-        # A tree whose level is narrower than the widest one reads a
-        # clamped row; no point's local index selects it (masked).
-        offs = [off_ref[t, l] for t in range(num_trees)]
-        locals_ = [nodes[t] - offs[t] * LANES for t in range(num_trees)]
-        max_chunks = nch_ref[0, l]
-        for t in range(1, num_trees):
-            max_chunks = jnp.maximum(max_chunks, nch_ref[t, l])
-
-        def chunk_body(c, carry):
-            out = list(carry)
-            base = c * LANES
-            for t in range(num_trees):
-                local = locals_[t]
-                in_chunk = (local >= base) & (local < base + LANES)
-                r = jnp.clip(local - base, 0, LANES - 1)
-                row = jnp.minimum(offs[t] + c, max_chunk_idx)
-                chunk_m = jnp.broadcast_to(
-                    meta_ref[t, row, :].reshape(1, LANES), (s_rows, LANES)
-                )
-                chunk_t = jnp.broadcast_to(
-                    thr_ref[t, row, :].reshape(1, LANES), (s_rows, LANES)
-                )
-                g_m = jnp.take_along_axis(chunk_m, r, axis=1)
-                g_t = jnp.take_along_axis(chunk_t, r, axis=1)
-                out[2 * t] = jnp.where(in_chunk, g_m, out[2 * t])
-                out[2 * t + 1] = jnp.where(in_chunk, g_t, out[2 * t + 1])
-            return tuple(out)
-
-        init = []
-        for _ in range(num_trees):
-            init.append(jnp.zeros((s_rows, LANES), jnp.int32))
-            init.append(jnp.zeros((s_rows, LANES), jnp.float32))
-        swept = jax.lax.fori_loop(0, max_chunks, chunk_body, tuple(init))
-        metas = [swept[2 * t] for t in range(num_trees)]
-        thrs = [swept[2 * t + 1] for t in range(num_trees)]
-
-        # Up-convert every tree's f to the sublane domain. Two designs:
-        #
-        # Diag-gather (default False path): row p must hold f-row p//128,
-        # i.e. a 128x sublane replication — a broadcast + reshape, no
-        # arithmetic — followed by a [tile, 128]-domain diag gather per
-        # GROUP. The [tile, 128] diag gathers are the kernel's dominant
-        # cost (measured ~0.86 ms each over a VGA frame), so trees ride in
-        # groups of 3 packed into one int32 (3 * feat_bits <= 31):
-        # ceil(T/3) gathers instead of T.
-        #
-        # MXU-transpose (transpose_pack=True, VERDICT r3 item 3): the diag
-        # gathers — 40% of all gather invocations over the trained fixture
-        # (3266 of 8165, scripts/exp_descent.py) — are eliminated entirely.
-        # Trees pack 2-per-word (2 * feat_bits <= 23 keeps the word an
-        # exactly-representable f32 int); an identity dot_general at
-        # HIGHEST precision transposes [S, 128] -> [128, S] on the MXU
-        # (one nonzero per row, so no accumulation error), and per-point
-        # words come back via s_rows static column slices + lane
-        # broadcasts — no dynamic gathers.
-        if transpose_pack:
-            per_word = max(1, 23 // feat_bits)
-        else:
-            per_word = max(1, 31 // feat_bits)
-        groups = [
-            list(range(g, min(g + per_word, num_trees)))
-            for g in range(0, num_trees, per_word)
-        ]
-        packed = jnp.zeros((tile, LANES), jnp.int32)
-        if transpose_pack:
-            for grp in groups:
-                word = metas[grp[0]] & fmask
-                for k, t in enumerate(grp[1:], start=1):
-                    word = word | ((metas[t] & fmask) << (k * feat_bits))
-                wt = jax.lax.dot_general(
-                    eye, word.astype(jnp.float32),
-                    (((1,), (1,)), ((), ())),
-                    precision=jax.lax.Precision.HIGHEST,
-                )  # [128, S]: wt[l, s] = word of point s * 128 + l
-                rep_blocks = []
-                for s in range(s_rows):
-                    # Static column slice (s is a Python int): Mosaic TC has
-                    # no dynamic_slice lowering, so this must stay lax.slice.
-                    col = wt[:, s : s + 1]
-                    rep_blocks.append(
-                        jnp.broadcast_to(col, (LANES, LANES)).astype(jnp.int32)
-                    )
-                rep = jnp.concatenate(rep_blocks, axis=0)  # [tile, 128]
-                for k, t in enumerate(grp):
-                    packed = jnp.where(
-                        lane_id == t, (rep >> (k * feat_bits)) & fmask, packed
-                    )
-        else:
-            g_stacks = []
-            for grp in groups:
-                word = metas[grp[0]] & fmask
-                for k, t in enumerate(grp[1:], start=1):
-                    word = word | ((metas[t] & fmask) << (k * feat_bits))
-                g_stacks.append(word)
-            f_stack = jnp.concatenate(g_stacks, axis=1)  # [S, G * 128]
-            ng = len(groups)
-            f_rows = jnp.broadcast_to(
-                f_stack[:, None, :], (s_rows, LANES, ng * LANES)
-            ).reshape(tile, ng * LANES)  # [tile, G * 128]
-
-            # Pack: lane t of row p holds tree t's feature index for point p.
-            for gi, grp in enumerate(groups):
-                rep = jnp.take_along_axis(
-                    f_rows[:, gi * LANES : (gi + 1) * LANES], lane_of_p, axis=1
-                )
-                for k, t in enumerate(grp):
-                    packed = jnp.where(
-                        lane_id == t, (rep >> (k * feat_bits)) & fmask, packed
-                    )
-
-        # x[p, f_p] for ALL trees at once: lane-gathers over the tile's
-        # feature chunks; column t of the result is tree t's lookup.
-        f_chunk = packed // LANES
-        f_lane = packed - f_chunk * LANES
-        x_pack = jnp.zeros((tile, LANES), jnp.float32)
-        for fc in range(feat_chunks):
-            chunk = feats_ref[:, pl.ds(fc * LANES, LANES)]
-            xc = jnp.take_along_axis(chunk, f_lane, axis=1)
-            x_pack = jnp.where(f_chunk == fc, xc, x_pack)
-
+    def level(_, nodes):
         new_nodes = []
-        moving = jnp.zeros((s_rows, LANES), jnp.int32)
         for t in range(num_trees):
-            # Down-convert tree t's per-point scalar to points-on-lanes.
-            x = x_pack[:, t : t + 1].reshape(s_rows, LANES)
-            lc = metas[t] >> feat_bits
-            nxt = lc + (x >= thrs[t]).astype(jnp.int32)
-            moving = moving | (lc != 0).astype(jnp.int32)
+            r = (t * num_nodes + nodes[t]) * 2
+            meta = plgpu.load(rec_ref.at[r])
+            thr = jax.lax.bitcast_convert_type(
+                plgpu.load(rec_ref.at[r + 1]), jnp.float32
+            )
+            lc = meta >> feat_bits
+            x = plgpu.load(x_ref.at[row + (meta & fmask)])
+            nxt = lc + (x >= thr).astype(jnp.int32)  # x < thr -> left
             new_nodes.append(jnp.where(lc == 0, nodes[t], nxt))
-        return (l + 1, jnp.sum(moving), tuple(new_nodes))
+        return tuple(new_nodes)
 
-    nodes = tuple(
-        jnp.zeros((s_rows, LANES), jnp.int32) for _ in range(num_trees)
-    )
-    _, _, nodes = jax.lax.while_loop(
-        level_cond, level_body, (jnp.int32(0), jnp.int32(1), nodes)
-    )
+    # A fixed trip count. Points already on a leaf re-read their leaf record
+    # and feature, which the caches serve. A lax.while_loop that stops once
+    # the block sits on leaves compiles (scripts/probe_triton_while.py) but
+    # ran no faster at 32 points per block and slower at 64-256 on an H100
+    # (PERF.md): a block ends with the deepest of its 4 x 32 paths.
+    nodes = tuple(jnp.zeros((block,), jnp.int32) for _ in range(num_trees))
+    nodes = jax.lax.fori_loop(0, max_depth, level, nodes)
     for t in range(num_trees):
-        out_ref[:, pl.ds(t * LANES, LANES)] = nodes[t]
-
-
-def _transpose_pack_default() -> bool:
-    """Measured default for the descent pack design.
-
-    ``ROVINA_DESCENT_TRANSPOSE=1/0`` overrides; otherwise the TUNING.json
-    winner recorded by ``scripts/exp_descent.py``'s compiled slope check
-    applies, falling back to the diag-gather design (VERDICT r3 item 3 —
-    parity is proven in interpret mode, the win must be confirmed
-    compiled)."""
-    from ..utils import tuning
-
-    return bool(tuning.get("descent_transpose", False))
+        plgpu.store(out_ref.at[t, :], nodes[t])
 
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "num_levels", "feat_bits", "tile", "interpret", "transpose_pack"
-    ),
+    static_argnames=("max_depth", "feat_bits", "block", "num_warps", "interpret"),
 )
-def find_leaves_pallas(
-    features: jnp.ndarray,  # [P, D] f32 (P % tile == 0 after padding)
-    meta: jnp.ndarray,  # [T, Np] i32
-    thresholds: jnp.ndarray,  # [T, Np] f32
-    level_offsets: jnp.ndarray,  # [T, LV] i32
-    level_chunks: jnp.ndarray,  # [T, LV] i32
-    num_levels: int,
+def find_leaves_triton(
+    features: jnp.ndarray,  # [P, D] f32
+    records: jnp.ndarray,  # [T, N, 2] i32 packed node records
+    max_depth: int,
     feat_bits: int,
-    tile: int = 1024,
+    block: int = BLOCK,
+    num_warps: int = NUM_WARPS,
     interpret: bool = False,
-    transpose_pack: "bool | None" = None,
-) -> jnp.ndarray:  # [P, T] leaf ids (level-major numbering)
-    # Mosaic targets TPUs; anywhere else (CPU tests, virtual meshes) the
-    # kernel runs through the Pallas interpreter transparently.
-    interpret = interpret or jax.default_backend() != "tpu"
-    if transpose_pack is None:
-        transpose_pack = _transpose_pack_default()
-    if transpose_pack and feat_bits > 24:
-        # The transpose path routes the packed word through f32 (identity
-        # dot_general), exact only up to 2^24. feat_bits > 24 would reach
-        # this at per_word == 1 (max(1, 23 // feat_bits) floors) and
-        # silently corrupt feature indices; the diag-gather path is
-        # int32-exact to 31 bits, so fall back to it regardless of the
-        # global TUNING.json default (round-4 advisor, low). Real forests
-        # never get here (feat_bits <= ceil(log2(D)) and D = 366 -> 9).
-        transpose_pack = False
+) -> jnp.ndarray:  # [P, T] i32 leaf node ids
+    """The kernel's leaves; equal to :func:`_find_leaves_packed`'s."""
     p, d = features.shape
-    t_count = meta.shape[0]
-    if t_count > LANES:
-        raise ValueError("descent kernel packs tree lookups on lanes; "
-                         f"num_trees must be <= {LANES}, got {t_count}")
-    feat_chunks = -(-d // LANES)
-    d_pad = feat_chunks * LANES
-    p_pad = -(-p // tile) * tile
-    feats = jnp.pad(features, ((0, p_pad - p), (0, d_pad - d)))
-    # Chunk-major tree tables: statically 128-aligned row loads in Mosaic.
-    np_nodes = meta.shape[1]
-    meta = meta.reshape(t_count, np_nodes // LANES, LANES)
-    thresholds = thresholds.reshape(t_count, np_nodes // LANES, LANES)
-
+    t_count, n_nodes, _ = records.shape
+    grid = -(-p // block)
     out = pl.pallas_call(
         partial(
             _descent_kernel,
             num_trees=t_count,
-            num_levels=num_levels,
+            num_nodes=n_nodes,
+            num_points=p,
+            num_features=d,
+            max_depth=max_depth,
             feat_bits=feat_bits,
-            feat_chunks=feat_chunks,
-            tile=tile,
-            transpose_pack=transpose_pack,
+            block=block,
         ),
-        grid=(p_pad // tile,),
+        out_shape=jax.ShapeDtypeStruct((t_count, grid * block), jnp.int32),
+        grid=(grid,),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, d_pad), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
+            pl.BlockSpec(memory_space=pl.ANY),
+            pl.BlockSpec(memory_space=pl.ANY),
         ],
-        out_specs=pl.BlockSpec(
-            (tile // LANES, t_count * LANES),
-            lambda i: (i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (p_pad // LANES, t_count * LANES), jnp.int32
-        ),
+        out_specs=pl.BlockSpec((t_count, block), lambda i: (0, i)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(level_offsets, level_chunks, feats, meta, thresholds)
-
-    # out[p // 128, t * 128 + p % 128] -> [P, T].
-    leaves = (
-        out.reshape(p_pad // LANES, t_count, LANES)
-        .transpose(0, 2, 1)
-        .reshape(p_pad, t_count)
-    )
-    return leaves[:p]
+        name="forest_descent",
+    )(features.reshape(-1), records.reshape(-1))
+    return out[:, :p].T
 
 
-class PallasForestPredictor:
-    """Drop-in forest predictor running descent through the Pallas kernel."""
-
-    def __init__(self, forest: Forest, interpret: bool = False):
-        self.interpret = interpret
-        self.lm = build_level_major(forest)
-        self.meta = jnp.asarray(self.lm.meta)
-        self.thresholds = jnp.asarray(self.lm.thresholds)
-        self.leaf_hist = jnp.asarray(self.lm.leaf_hist)
-        self.level_offsets = jnp.asarray(self.lm.level_offsets)
-        self.level_chunks = jnp.asarray(self.lm.level_chunks)
-        self.class_counts = self.lm.class_counts
-
-    def leaves(self, features: jnp.ndarray) -> jnp.ndarray:
-        return find_leaves_pallas(
-            features,
-            self.meta,
-            self.thresholds,
-            self.level_offsets,
-            self.level_chunks,
-            num_levels=self.lm.num_levels,
-            feat_bits=self.lm.feat_bits,
-            interpret=self.interpret,
+def find_leaves(
+    features: jnp.ndarray,
+    records: jnp.ndarray,
+    *,
+    max_depth: int,
+    feat_bits: int,
+    descent: str,
+    interpret: bool = False,
+) -> jnp.ndarray:
+    """[P, D] -> [P, T] leaf ids through the named descent."""
+    if descent == "triton":
+        return find_leaves_triton(
+            features, records, max_depth, feat_bits, interpret=interpret
         )
-
-    def log_posterior(self, features: jnp.ndarray) -> jnp.ndarray:
-        from ..models.forest import _sum_leaf_histograms
-
-        leaves = self.leaves(features)
-        return _sum_leaf_histograms(self.leaf_hist, leaves)
+    if descent == "xla":
+        return _find_leaves_packed(features, records, max_depth, feat_bits)
+    raise ValueError(f"unknown descent {descent!r}; expected one of {DESCENTS}")

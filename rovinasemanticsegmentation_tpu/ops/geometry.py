@@ -33,8 +33,8 @@ def backproject(
     # millimeters (feature_extractor.h:62) — both are honored by callers.
     valid = (depth >= d_min) & (depth <= d_max)
     pix = jnp.stack([depth * xs, depth * ys, depth], axis=-1)  # [H, W, 3]
-    # precision=HIGHEST: TPU matmuls default to bf16, which costs ~mm-scale
-    # error in world coordinates; geometry must stay float32.
+    # precision=HIGHEST: a float32 matmul may otherwise run in TF32 (or
+    # bf16), which costs ~mm-scale error in world coordinates.
     m = jnp.matmul(rotation, intrinsic_inverse, precision=jax.lax.Precision.HIGHEST)
     world = (
         jnp.matmul(pix, m.T, precision=jax.lax.Precision.HIGHEST) + translation

@@ -29,9 +29,7 @@ this environment):
    stride grid each rect's box sum is four contiguous slices of PHASE-SPLIT
    padded integral images (one strided split into s*s phase sub-images up
    front; every corner read is then a contiguous ``dynamic_slice``),
-   selected by a ``rect == r`` mask. No gathers — measured 8.2 ms at
-   stride 2 vs 69 ms naive strided slices, 17 ms gathers, on one v5e for
-   VGA input. All four integrals ride one 8-channel stack so the whole box
+   selected by a ``rect == r`` mask. No gathers. All four integrals ride one 8-channel stack so the whole box
    sum is one slice expression;
 6. normal ~ cross(grad_y_sum, grad_x_sum); windows with no finite elements
    in either gradient or a zero-length cross give NaN. Only ``|n_z|`` is
@@ -130,13 +128,12 @@ def _chamfer_iter(change: jnp.ndarray, saturation: float) -> jnp.ndarray:
     never relax them (they loop x in [1, w-2]), and their frozen values
     feed the in-row chains, which the pinning reproduces — so the result
     clamps identically to the sequential passes at EVERY column of every
-    row >= ceil(s) from the top/bottom edge (the banded variant's exact
-    contract, pinned by TestDistanceTransform).
+    row >= ceil(s) from the top/bottom edge (pinned by
+    TestDistanceTransform).
 
-    Unlike the row-banded scan (72 sequential ~10-op steps + a cummin
-    chain per step for VGA) this is ceil(s) (= 10 for the config default)
-    dependent rounds of pure elementwise shifts/mins on the [H, W] image —
-    no ``lax.scan``, no band stacking, no in-row cummin.
+    Unlike the full-height row scan (2x(H-1) sequential steps, each with an
+    in-row cummin chain) this is ceil(s) (= 10 for the config default)
+    dependent rounds of pure elementwise shifts/mins on the [H, W] image.
     """
     h, w = change.shape
     sat = jnp.float32(saturation)
@@ -175,48 +172,22 @@ def _chamfer_iter(change: jnp.ndarray, saturation: float) -> jnp.ndarray:
 def chamfer_distance_map(
     change: jnp.ndarray,
     saturation: Optional[float] = None,
-    variant: str = "iter",
 ) -> jnp.ndarray:
     """PCL's two-pass chamfer (1.0/1.4) distance to the change pixels.
 
     With ``saturation=s`` the consumer only distinguishes values < s (PCL
     clamps ``smoothing = min(distance, s)``) outside an ``int(s)`` border
-    frame, which admits two fast formulations (``variant``):
-
-    - ``"iter"`` (default): ceil(s) rounds of 3x3 min-plus relaxation —
-      fully parallel, no scans (see :func:`_chamfer_iter`).
-    - ``"banded"``: independent row BANDS with ``ceil(s)``-row halos (any
-      chamfer path crossing a halo costs > s and both values clamp
-      identically), turning the 2x(H-1)-step row scan into
-      ~2x(band+2*halo) steps over all bands stacked on sublanes
-      (478 -> 72 sequential steps for VGA).
-
-    Either way, saturated values outside the clamp or inside the
-    top/bottom image border may differ from the sequential passes; exact
-    (unsaturated) callers get the full-height scan.
+    frame, so ceil(s) rounds of 3x3 min-plus relaxation suffice (see
+    :func:`_chamfer_iter`); saturated values outside the clamp or inside
+    the top/bottom image border may differ from the sequential passes.
+    Exact (unsaturated) callers get the full-height scan.
     """
+    if saturation is not None:
+        return _chamfer_iter(change, saturation)
     h, w = change.shape
     big = jnp.float32(h + w)
     d0 = jnp.where(change, 0.0, big).astype(jnp.float32)
-    if saturation is None:
-        return _chamfer_passes(d0, big)
-    if variant == "iter":
-        return _chamfer_iter(change, saturation)
-
-    halo = int(np.ceil(saturation))
-    band = 16
-    nb = -(-h // band)
-    padded = jnp.pad(
-        d0, ((halo, halo + nb * band - h), (0, 0)), constant_values=big
-    )
-    bands = jnp.stack(
-        [
-            jax.lax.dynamic_slice_in_dim(padded, i * band, band + 2 * halo, 0)
-            for i in range(nb)
-        ]
-    )  # [nb, band + 2*halo, W]
-    out = _chamfer_passes(bands, big)
-    return out[:, halo : halo + band, :].reshape(nb * band, w)[:h]
+    return _chamfer_passes(d0, big)
 
 
 def _shift(a: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
@@ -260,20 +231,16 @@ def _box_sum_gather(integral: jnp.ndarray, y0, y1, x0, x1) -> jnp.ndarray:
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "max_depth_change_factor", "normal_smoothing_size", "chamfer_variant"
-    ),
+    static_argnames=("max_depth_change_factor", "normal_smoothing_size"),
 )
 def normal_angles(
     points: jnp.ndarray,
     max_depth_change_factor: float = 0.02,
     normal_smoothing_size: float = 10.0,
-    chamfer_variant: Optional[str] = None,
 ) -> jnp.ndarray:
     """Full-resolution angles [H, W] (see :func:`normal_angles_grid`)."""
     return _normal_angles_impl(
-        points, None, max_depth_change_factor, normal_smoothing_size,
-        chamfer_variant,
+        points, None, max_depth_change_factor, normal_smoothing_size
     )
 
 
@@ -281,7 +248,6 @@ def normal_angles(
     jax.jit,
     static_argnames=(
         "stride", "max_depth_change_factor", "normal_smoothing_size",
-        "chamfer_variant",
     ),
 )
 def normal_angles_grid(
@@ -289,7 +255,6 @@ def normal_angles_grid(
     stride: int,
     max_depth_change_factor: float = 0.02,
     normal_smoothing_size: float = 10.0,
-    chamfer_variant: Optional[str] = None,
 ) -> jnp.ndarray:  # [ceil(H/s), ceil(W/s)]
     """Angles only at the stride-grid samples.
 
@@ -299,21 +264,14 @@ def normal_angles_grid(
     sums use the static-rect phase-split formulation (no gathers).
     """
     return _normal_angles_impl(
-        points, stride, max_depth_change_factor, normal_smoothing_size,
-        chamfer_variant,
+        points, stride, max_depth_change_factor, normal_smoothing_size
     )
 
 
 def _normal_angles_impl(
     points, stride: Optional[int], max_depth_change_factor,
-    normal_smoothing_size, chamfer_variant: Optional[str] = None,
+    normal_smoothing_size,
 ):
-    if chamfer_variant is None:
-        # Measured default (env ROVINA_CHAMFER_VARIANT > TUNING.json >
-        # "iter"); a trace-time static choice like the descent pack's.
-        from ..utils import tuning
-
-        chamfer_variant = str(tuning.get("chamfer_variant", "iter"))
     h, w = points.shape[0], points.shape[1]
     z = points[..., 2]
     invalid = jnp.isnan(z)
@@ -338,15 +296,13 @@ def _normal_angles_impl(
         | jnp.roll(change_y, 1, axis=0)  # partner y+1
     )
 
-    # The banded chamfer's halo is ceil(smoothing) while the consumer masks
-    # an int(smoothing) border; integral sizes (the config default 10.0)
-    # make those agree. Non-integral sizes take the exact full-height scan
-    # instead of hard-failing (they are rare enough that speed is moot).
+    # The saturated chamfer is exact ceil(smoothing) rows from the edge
+    # while the consumer masks an int(smoothing) border; integral sizes
+    # (the config default 10.0) make those agree. Non-integral sizes take
+    # the exact full-height scan.
     integral_size = float(normal_smoothing_size) == int(normal_smoothing_size)
     distance = chamfer_distance_map(
-        change,
-        saturation=normal_smoothing_size if integral_size else None,
-        variant=chamfer_variant,
+        change, saturation=normal_smoothing_size if integral_size else None
     )
 
     border = int(normal_smoothing_size)
@@ -362,9 +318,8 @@ def _normal_angles_impl(
         rect = smoothing.astype(jnp.int32)  # int() truncation
 
         # One CHANNEL-LEADING 8-stack [8, h, w]: grad_x (3), grad_y (3),
-        # count_x, count_y. Channels-trailing [h, w, 8] put the 8 channels
-        # on the 128 lanes (and rows on sublanes), wasting 120 lanes on
-        # every cumsum/select; channels-leading keeps w on lanes.
+        # count_x, count_y; the image width stays the minor axis of every
+        # cumsum/select.
         pts_t = jnp.moveaxis(points, -1, 0)  # [3, h, w]
         gx_t = _shift_c(pts_t, 0, -1) - _shift_c(pts_t, 0, 1)
         gy_t = _shift_c(pts_t, -1, 0) - _shift_c(pts_t, 1, 0)

@@ -7,7 +7,7 @@ from the reflect-padded Lab image and ``cv::resize`` it to
 ``patch_size_reduce x patch_size_reduce`` (uint8 bilinear), producing
 ``R*R*3`` feature values per pixel.
 
-TPU re-design: all P windows are resampled simultaneously. Each output pixel
+All P windows are resampled simultaneously. Each output pixel
 of each window needs 4 taps whose coordinates depend on the per-point window
 size, so the whole op is a single gather of shape [P, R, R, 4taps, 3] from
 the padded image plus fixed-point weight arithmetic — no per-pixel loops, no
@@ -104,3 +104,22 @@ def extract_patches(
     acc = row0 * wy0b + row1 * wy1b
     out = (acc + (1 << 21)) >> 22
     return jnp.clip(out, 0, 255).astype(jnp.uint8)
+
+
+@partial(jax.jit, static_argnames=("patch_size", "reduce_size", "stride"))
+def extract_patches_grid(
+    padded_lab: jnp.ndarray,  # [H+2B, W+2B, 3] uint8
+    depth_grid: jnp.ndarray,  # [gh, gw] float32 meters (<= 0 -> masked)
+    patch_size: int,
+    reduce_size: int,
+    stride: int,
+) -> jnp.ndarray:  # [gh, gw, R, R, 3] uint8
+    """:func:`extract_patches` at every point of the stride grid; the
+    extractor's patch stage. Points with depth <= 0 get the h=0 window."""
+    gh, gw = depth_grid.shape
+    ys = jnp.repeat(jnp.arange(gh, dtype=jnp.int32) * stride, gw)
+    xs = jnp.tile(jnp.arange(gw, dtype=jnp.int32) * stride, gh)
+    out = extract_patches(
+        padded_lab, xs, ys, depth_grid.reshape(-1), patch_size, reduce_size
+    )
+    return out.reshape(gh, gw, reduce_size, reduce_size, 3)

@@ -5,7 +5,7 @@ The reference's concurrency inventory maps onto mesh axes (SURVEY.md §2.5):
 - ``data``: keyframe batches — replaces the per-frame worker thread
   (``/root/reference/src/segmenter.cpp:323``) and OpenMP-over-trees training
   loop (``third-party/libforest/src/learning.cpp:1046``) with data
-  parallelism over ICI/DCN;
+  parallelism across devices;
 - ``model``: forest trees (inference/training) and CRF point shards — XLA
   inserts psum/all-gather collectives where a sharded tree sum or lattice
   reduction crosses the axis.
@@ -44,11 +44,10 @@ def shard_batch_pipeline(mesh: Mesh) -> None:
     """One sharded batched inference step on tiny shapes (dry-run probe).
 
     Data-parallel over frames, tree-parallel over the forest: the per-point
-    tree-sum crosses the ``model`` axis, so XLA lowers it to an all-reduce
-    over ICI.
+    tree-sum crosses the ``model`` axis, so XLA lowers it to an all-reduce.
     """
     from ..models.forest import pack_node_records, random_forest
-    from ..pipelines.single_frame import _single_frame_impl
+    from ..pipelines.single_frame import _frame_batch_impl
 
     data = mesh.shape["data"]
     model = mesh.shape["model"]
@@ -76,19 +75,17 @@ def shard_batch_pipeline(mesh: Mesh) -> None:
         stride=2, patch_size=15, reduce_size=5,
         use_color_patch=True, use_depth=True, use_height=True, use_normal=True,
         max_depth=forest.max_depth, feat_bits=feat_bits,
+        descent="xla", interpret=False,
         class_counts=tuple(forest.class_counts),
         fill_value=0.0, out_h=h, out_w=w,
     )
 
     def step(rgb, depth, kinv, rot, trans, rec, hist):
-        def one(rgb1, depth1, kinv1, rot1, trans1):
-            return _single_frame_impl(
-                rgb1, depth1, kinv1, rot1, trans1,
-                jnp.float32(0.5), jnp.float32(15.0),
-                rec, hist, **static,
-            )
-
-        return jax.vmap(one)(rgb, depth, kinv, rot, trans)
+        return _frame_batch_impl(
+            rgb, depth, kinv, rot, trans,
+            jnp.float32(0.5), jnp.float32(15.0),
+            rec, hist, **static,
+        )
 
     dp = NamedSharding(mesh, P("data"))
     tp = NamedSharding(mesh, P("model"))
@@ -102,6 +99,7 @@ def shard_batch_pipeline(mesh: Mesh) -> None:
 
     out = jax.jit(step)(rgb, depth, kinv, rot, trans, rec, hist)
     jax.block_until_ready(out)
-    posteriors, labels = out
-    assert labels[0].shape == (b, h, w)
-    assert posteriors[1].shape == (b, h, w, 9)
+    assert len(out) == b
+    posteriors, labels = out[0]
+    assert labels[0].shape == (h, w)
+    assert posteriors[1].shape == (h, w, 9)

@@ -9,7 +9,7 @@ per local map, handled by the permutohedral lattice's O(N*(d+1)) filtering
   axis;
 - lattice vertices [M+1, C] are the shared state: each device splats its
   point shard into a local vertex copy, a ``psum`` over the axis reduces the
-  partial vertex values (the ring-exchange of vertex partials over ICI),
+  partial vertex values (the ring-exchange of vertex partials),
   the d+1 blur passes run replicated, and slicing back to points is local.
 
 One psum of [M+1, C] per mean-field iteration is the only cross-chip

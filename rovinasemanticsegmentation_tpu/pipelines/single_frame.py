@@ -13,9 +13,9 @@ per-keyframe worker (``src/segmenter.cpp:323-443``):
 5. per-pixel argmax with a -1000 floor: pixels where nothing beats -1000 get
    label -1 (test_multi.cpp:206-216).
 
-The whole slice is one jitted computation per layer set; the stride grid maps
-to the posterior image by a plain reshape because grid points are generated
-row-major.
+The whole slice is one jitted computation over a batch of frames; the stride
+grid maps to the posterior image by a plain reshape because grid points are
+generated row-major.
 """
 
 from __future__ import annotations
@@ -28,20 +28,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..features.extractor import (
-    ExtractType,
-    FeatureBatch,
-    FeatureConfig,
-    FeatureExtractor,
-    _extract_impl,
-)
-from ..models.forest import (
-    Forest,
-    ForestPredictor,
-    _sum_leaf_histograms,
-    forest_log_posterior_packed,
-)
-from ..ops.forest_pallas import PallasForestPredictor, find_leaves_pallas
+from ..features.extractor import FeatureConfig, _extract_impl
+from ..models.forest import Forest, ForestPredictor, _sum_leaf_histograms
+from ..ops.forest_pallas import DESCENTS, find_leaves, select_descent
 from ..ops.resize import resize_bilinear
 from ..utils.calibration import Calibration
 
@@ -67,34 +56,24 @@ def _posterior_maps(post, mask, depth_mm, stride, class_counts, fill_value,
     return posteriors, labels
 
 
-@partial(
-    jax.jit,
-    static_argnames=(
-        "stride",
-        "patch_size",
-        "reduce_size",
-        "use_color_patch",
-        "use_depth",
-        "use_height",
-        "use_normal",
-        "max_depth",
-        "feat_bits",
-        "class_counts",
-        "fill_value",
-        "out_h",
-        "out_w",
-    ),
+_FRAME_STATICS = (
+    "stride", "patch_size", "reduce_size", "use_color_patch", "use_depth",
+    "use_height", "use_normal", "max_depth", "feat_bits", "descent",
+    "interpret", "class_counts", "fill_value", "out_h", "out_w",
 )
-def _single_frame_impl(
-    rgb: jnp.ndarray,
-    depth_mm: jnp.ndarray,
-    intrinsic_inverse: jnp.ndarray,
-    rotation: jnp.ndarray,
-    translation: jnp.ndarray,
+
+
+@partial(jax.jit, static_argnames=_FRAME_STATICS)
+def _frame_batch_impl(
+    rgb: jnp.ndarray,  # [B, H, W, 3] uint8
+    depth_mm: jnp.ndarray,  # [B, H, W] uint16
+    intrinsic_inverse: jnp.ndarray,  # [B, 3, 3]
+    rotation: jnp.ndarray,  # [B, 3, 3]
+    translation: jnp.ndarray,  # [B, 3]
     d_min: jnp.ndarray,
     d_max: jnp.ndarray,
-    records: jnp.ndarray,
-    leaf_hist: jnp.ndarray,
+    records: jnp.ndarray,  # [T, N, 2] packed node records
+    leaf_hist: jnp.ndarray,  # [T, N, L, C]
     *,
     stride: int,
     patch_size: int,
@@ -105,119 +84,51 @@ def _single_frame_impl(
     use_normal: bool,
     max_depth: int,
     feat_bits: int,
+    descent: str,
+    interpret: bool,
     class_counts: Tuple[int, ...],
     fill_value: float,
     out_h: int,
     out_w: int,
 ):
-    features, mask, ys, xs = _extract_impl(
-        rgb,
-        depth_mm,
-        intrinsic_inverse,
-        rotation,
-        translation,
-        d_min,
-        d_max,
-        stride=stride,
-        patch_size=patch_size,
-        reduce_size=reduce_size,
-        use_color_patch=use_color_patch,
-        use_depth=use_depth,
-        use_height=use_height,
-        use_normal=use_normal,
-    )
-    post = forest_log_posterior_packed(
-        features, records, leaf_hist, max_depth=max_depth, feat_bits=feat_bits,
-    )  # [P, L, Cmax]
-    return _posterior_maps(
-        post, mask, depth_mm, stride, class_counts, fill_value, out_h, out_w
-    )
+    """B keyframes in one dispatch: the frame path of every caller.
 
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "stride", "patch_size", "reduce_size", "use_color_patch", "use_depth",
-        "use_height", "use_normal", "num_levels", "feat_bits", "class_counts",
-        "fill_value", "out_h", "out_w",
-    ),
-)
-def _single_frame_impl_pallas(
-    rgb, depth_mm, intrinsic_inverse, rotation, translation, d_min, d_max,
-    meta, thresholds, level_offsets, level_chunks, leaf_hist,
-    *, stride, patch_size, reduce_size, use_color_patch, use_depth,
-    use_height, use_normal, num_levels, feat_bits, class_counts,
-    fill_value, out_h, out_w,
-):
-    """Single-frame slice with the Pallas descent kernel (~4.6x faster
-    tree traversal on v5e; see ops/forest_pallas.py)."""
-    features, mask, ys, xs = _extract_impl(
-        rgb, depth_mm, intrinsic_inverse, rotation, translation, d_min, d_max,
-        stride=stride, patch_size=patch_size, reduce_size=reduce_size,
-        use_color_patch=use_color_patch, use_depth=use_depth,
-        use_height=use_height, use_normal=use_normal,
-    )
-    leaves = find_leaves_pallas(
-        features, meta, thresholds, level_offsets, level_chunks,
-        num_levels=num_levels, feat_bits=feat_bits,
-    )
-    post = _sum_leaf_histograms(leaf_hist, leaves)
-    return _posterior_maps(
-        post, mask, depth_mm, stride, class_counts, fill_value, out_h, out_w
-    )
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "stride", "patch_size", "reduce_size", "use_color_patch", "use_depth",
-        "use_height", "use_normal", "num_levels", "feat_bits", "class_counts",
-        "fill_value", "out_h", "out_w",
-    ),
-)
-def _batch_frame_impl_pallas(
-    rgb, depth_mm, intrinsic_inverse, rotation, translation, d_min, d_max,
-    meta, thresholds, level_offsets, level_chunks, leaf_hist,
-    *, stride, patch_size, reduce_size, use_color_patch, use_depth,
-    use_height, use_normal, num_levels, feat_bits, class_counts,
-    fill_value, out_h, out_w,
-):
-    """Batched single-frame slice: B keyframes per dispatch.
-
-    The per-image stages run as a static Python loop inside the one jit
-    (no extra dispatches); the forest descent and leaf-histogram gathers
-    run ONCE on the concatenated [B*P, D] feature matrix, amortizing the
-    Pallas kernel's fixed per-call cost over the batch. This is the DP-
-    over-keyframes component from SURVEY.md 2.5 (replacing the reference's
-    one-frame-at-a-time worker, src/segmenter.cpp:323-443).
+    Feature extraction and the posterior tail are ``vmap``-ed over frames;
+    the descent and the leaf-histogram sum run once on the concatenated
+    [B*P, D] feature matrix. Per-frame outputs do not depend on B (this is
+    the data parallelism over keyframes of SURVEY.md 2.5, replacing the
+    reference's one-frame-at-a-time worker, src/segmenter.cpp:323-443).
+    Returns one ``(posteriors, labels)`` pair of per-layer lists per frame.
     """
     b = rgb.shape[0]
-    feats_all = []
-    masks = []
-    for i in range(b):
-        features, mask, ys, xs = _extract_impl(
-            rgb[i], depth_mm[i], intrinsic_inverse[i], rotation[i],
-            translation[i], d_min, d_max,
+
+    def extract(rgb1, depth1, kinv1, rot1, trans1):
+        features, mask, _, _ = _extract_impl(
+            rgb1, depth1, kinv1, rot1, trans1, d_min, d_max,
             stride=stride, patch_size=patch_size, reduce_size=reduce_size,
             use_color_patch=use_color_patch, use_depth=use_depth,
             use_height=use_height, use_normal=use_normal,
         )
-        feats_all.append(features)
-        masks.append(mask)
-    feats = jnp.concatenate(feats_all, axis=0)  # [B*P, D]
-    leaves = find_leaves_pallas(
-        feats, meta, thresholds, level_offsets, level_chunks,
-        num_levels=num_levels, feat_bits=feat_bits,
+        return features, mask
+
+    feats, masks = jax.vmap(extract)(
+        rgb, depth_mm, intrinsic_inverse, rotation, translation
+    )  # [B, P, D], [B, P]
+    p, d = feats.shape[1], feats.shape[2]
+    leaves = find_leaves(
+        feats.reshape(b * p, d), records, max_depth=max_depth,
+        feat_bits=feat_bits, descent=descent, interpret=interpret,
     )
     post = _sum_leaf_histograms(leaf_hist, leaves)  # [B*P, L, Cmax]
-    p = masks[0].shape[0]
-    outs = []
-    for i in range(b):
-        outs.append(_posterior_maps(
-            post[i * p : (i + 1) * p], masks[i], depth_mm[i], stride,
-            class_counts, fill_value, out_h, out_w,
-        ))
-    return outs
+    posteriors, labels = jax.vmap(
+        lambda po, m, dep: _posterior_maps(
+            po, m, dep, stride, class_counts, fill_value, out_h, out_w
+        )
+    )(post.reshape(b, p, *post.shape[1:]), masks, depth_mm)
+    return [
+        ([po[i] for po in posteriors], [la[i] for la in labels])
+        for i in range(b)
+    ]
 
 
 @dataclass
@@ -227,7 +138,13 @@ class SingleFrameResult:
 
 
 class SingleFramePipeline:
-    """features -> RF -> posterior maps -> labels for one calibrated camera."""
+    """features -> RF -> posterior maps -> labels for one calibrated camera.
+
+    ``descent`` names the forest descent (``ops/forest_pallas.py``); by
+    default :func:`select_descent` picks it from the platform.
+    ``interpret=True`` runs the descent kernel through the Pallas
+    interpreter (CPU tests only).
+    """
 
     def __init__(
         self,
@@ -235,20 +152,17 @@ class SingleFramePipeline:
         forest: Forest,
         stride: int,
         fill_value: float = ARGMAX_FLOOR,
-        use_pallas: Optional[bool] = None,
+        descent: Optional[str] = None,
+        interpret: bool = False,
     ):
-        from ..ops.color import warm_lab_tables
-
-        warm_lab_tables()  # measure VPU Lab corrections outside any trace
         self.feature_config = feature_config
         self.stride = int(stride)
         self.fill_value = float(fill_value)
         self.class_counts = tuple(forest.class_counts)
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        self.use_pallas = bool(use_pallas)
-        self._forest = forest
-        self.pallas_predictor = PallasForestPredictor(forest) if self.use_pallas else None
+        self.descent = descent or select_descent(jax.default_backend())
+        if self.descent not in DESCENTS:
+            raise ValueError(f"unknown descent {self.descent!r}")
+        self.interpret = bool(interpret)
         self.predictor = ForestPredictor(forest)
 
     def run_batch(
@@ -257,23 +171,35 @@ class SingleFramePipeline:
         depths_mm: Sequence[np.ndarray],
         calibrations: Sequence[Calibration],
     ) -> List[SingleFrameResult]:
-        """Process B keyframes in ONE dispatch (requires the Pallas path).
-
-        Amortizes dispatch latency and the descent kernel's fixed cost;
-        per-frame outputs are identical to :meth:`run` (same kernels, same
-        math — the batch only concatenates points).
-        """
-        if not self.use_pallas:
-            return [
-                self.run(r, d, c)
-                for r, d, c in zip(rgbs, depths_mm, calibrations)
-            ]
+        """Process B keyframes in ONE dispatch; per-frame outputs are those
+        of :meth:`run`."""
         return self.run_batch_stacked(
             np.stack([np.asarray(r) for r in rgbs]),
             np.stack([np.asarray(d) for d in depths_mm]),
             np.stack([np.asarray(c.intrinsic_inverse) for c in calibrations]),
             np.stack([np.asarray(c.rotation) for c in calibrations]),
             np.stack([np.asarray(c.translation) for c in calibrations]),
+        )
+
+    def frame_statics(self, h: int, w: int) -> dict:
+        """The static arguments of :func:`_frame_batch_impl` for HxW frames."""
+        cfg = self.feature_config
+        return dict(
+            stride=self.stride,
+            patch_size=cfg.patch_size,
+            reduce_size=cfg.patch_size_reduce,
+            use_color_patch=cfg.use_color_patch,
+            use_depth=cfg.use_depth,
+            use_height=cfg.use_height,
+            use_normal=cfg.use_normal,
+            max_depth=self.predictor.max_depth,
+            feat_bits=self.predictor.feat_bits,
+            descent=self.descent,
+            interpret=self.interpret,
+            class_counts=self.class_counts,
+            fill_value=self.fill_value,
+            out_h=h,
+            out_w=w,
         )
 
     def run_batch_stacked(
@@ -284,44 +210,21 @@ class SingleFramePipeline:
         rot_stack,  # [B, 3, 3]
         trans_stack,  # [B, 3]
     ) -> List[SingleFrameResult]:
-        """Like :meth:`run_batch` on pre-stacked inputs.
-
-        Accepts device-resident arrays unchanged — serving loops that keep
-        frames on device (or stage them ahead of time) avoid the per-call
-        host->device transfers, which dominate on transfer-limited links.
-        """
+        """Like :meth:`run_batch` on pre-stacked inputs; device-resident
+        arrays pass through without a host round trip."""
         cfg = self.feature_config
         h, w = int(depth_stack.shape[1]), int(depth_stack.shape[2])
-        pp = self.pallas_predictor
-        if pp is None:
-            # The batched path is Pallas-only; off-TPU the kernel runs
-            # through the interpreter (bit-identical, just slower), so
-            # build the predictor lazily instead of crashing — CPU callers
-            # of the batch API (dry-runs, tests) stay correct.
-            pp = self.pallas_predictor = PallasForestPredictor(self._forest)
-        outs = _batch_frame_impl_pallas(
+        outs = _frame_batch_impl(
             jnp.asarray(rgb_stack),
             jnp.asarray(depth_stack),
-            jnp.asarray(kinv_stack),
-            jnp.asarray(rot_stack),
-            jnp.asarray(trans_stack),
+            jnp.asarray(kinv_stack, jnp.float32),
+            jnp.asarray(rot_stack, jnp.float32),
+            jnp.asarray(trans_stack, jnp.float32),
             jnp.float32(cfg.d_min),
             jnp.float32(cfg.d_max),
-            pp.meta, pp.thresholds, pp.level_offsets, pp.level_chunks,
-            pp.leaf_hist,
-            stride=self.stride,
-            patch_size=cfg.patch_size,
-            reduce_size=cfg.patch_size_reduce,
-            use_color_patch=cfg.use_color_patch,
-            use_depth=cfg.use_depth,
-            use_height=cfg.use_height,
-            use_normal=cfg.use_normal,
-            num_levels=pp.lm.num_levels,
-            feat_bits=pp.lm.feat_bits,
-            class_counts=self.class_counts,
-            fill_value=self.fill_value,
-            out_h=h,
-            out_w=w,
+            self.predictor.records,
+            self.predictor.leaf_hist,
+            **self.frame_statics(h, w),
         )
         return [
             SingleFrameResult(posteriors=po, labels=la) for po, la in outs
@@ -333,57 +236,4 @@ class SingleFramePipeline:
         depth_mm: np.ndarray,
         calibration: Calibration,
     ) -> SingleFrameResult:
-        cfg = self.feature_config
-        h, w = np.asarray(depth_mm).shape
-        if self.use_pallas:
-            pp = self.pallas_predictor
-            posteriors, labels = _single_frame_impl_pallas(
-                jnp.asarray(rgb),
-                jnp.asarray(depth_mm),
-                jnp.asarray(calibration.intrinsic_inverse),
-                jnp.asarray(calibration.rotation),
-                jnp.asarray(calibration.translation),
-                jnp.float32(cfg.d_min),
-                jnp.float32(cfg.d_max),
-                pp.meta, pp.thresholds, pp.level_offsets, pp.level_chunks,
-                pp.leaf_hist,
-                stride=self.stride,
-                patch_size=cfg.patch_size,
-                reduce_size=cfg.patch_size_reduce,
-                use_color_patch=cfg.use_color_patch,
-                use_depth=cfg.use_depth,
-                use_height=cfg.use_height,
-                use_normal=cfg.use_normal,
-                num_levels=pp.lm.num_levels,
-                feat_bits=pp.lm.feat_bits,
-                class_counts=self.class_counts,
-                fill_value=self.fill_value,
-                out_h=h,
-                out_w=w,
-            )
-            return SingleFrameResult(posteriors=posteriors, labels=labels)
-        posteriors, labels = _single_frame_impl(
-            jnp.asarray(rgb),
-            jnp.asarray(depth_mm),
-            jnp.asarray(calibration.intrinsic_inverse),
-            jnp.asarray(calibration.rotation),
-            jnp.asarray(calibration.translation),
-            jnp.float32(cfg.d_min),
-            jnp.float32(cfg.d_max),
-            self.predictor.records,
-            self.predictor.leaf_hist,
-            stride=self.stride,
-            patch_size=cfg.patch_size,
-            reduce_size=cfg.patch_size_reduce,
-            use_color_patch=cfg.use_color_patch,
-            use_depth=cfg.use_depth,
-            use_height=cfg.use_height,
-            use_normal=cfg.use_normal,
-            max_depth=self.predictor.max_depth,
-            feat_bits=self.predictor.feat_bits,
-            class_counts=self.class_counts,
-            fill_value=self.fill_value,
-            out_h=h,
-            out_w=w,
-        )
-        return SingleFrameResult(posteriors=posteriors, labels=labels)
+        return self.run_batch([rgb], [depth_mm], [calibration])[0]

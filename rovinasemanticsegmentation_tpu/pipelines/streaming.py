@@ -1,20 +1,13 @@
 """One-dispatch streaming: a keyframe batch PLUS its local maps.
 
 The reference runs a frame worker and a map worker concurrently
-(``/root/reference/src/segmenter.cpp:227-232``) because its CPU pipeline
-wins wall time from thread overlap. On one TPU chip there is no concurrency
-to win: two workers interleave executes on ONE serial device queue, and
-every extra execute pays the host link's per-RPC time. Round-3 measurement
-(ROADMAP.md): the frame path alone runs 26.9-29.2 ms/kf, the interleaved
-two-worker system ~46 ms/kf — the gap is RPC/interleave overhead, not
-device work.
-
-The TPU-native answer is graph fusion, not threads: one jit carries the
+(``src/segmenter.cpp:227-232``). Here one jit carries the
 whole batch's frame path (features -> descent -> posteriors -> labels) AND
 every local map those keyframes feed (node fusion -> device lattice build
--> fused multi-layer CRF), so steady state is ONE execute per keyframe
+-> fused multi-layer CRF), so steady state is ONE dispatch per keyframe
 batch. The map's data dependency on its keyframes' posteriors is an edge
-inside the graph instead of a host-side thread handoff.
+inside the graph instead of a host-side thread handoff. Whether this beats
+the two-worker form on the GPU is not measured yet (ROADMAP D6).
 
 Serving latency note: the Segmenter keeps the reference's worker-thread
 architecture (per-keyframe latency matters there); this module is the
@@ -31,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .local_map import LocalMapPipeline, _map_fused
-from .single_frame import SingleFramePipeline, _batch_frame_impl_pallas
+from .single_frame import _FRAME_STATICS, SingleFramePipeline, _frame_batch_impl
 
 
 def pack_poses(projector, poses: Sequence[np.ndarray]) -> np.ndarray:
@@ -58,12 +51,7 @@ def pack_poses(projector, poses: Sequence[np.ndarray]) -> np.ndarray:
 
 @partial(
     jax.jit,
-    static_argnames=(
-        # frame statics
-        "stride", "patch_size", "reduce_size", "use_color_patch",
-        "use_depth", "use_height", "use_normal", "num_levels", "feat_bits",
-        "class_counts", "fill_value", "out_h", "out_w",
-        # map statics
+    static_argnames=_FRAME_STATICS + (
         "map_every", "maps_per_batch", "num_points", "blocks", "m_bucket",
         "n_iterations", "unknown_labels", "min_distance", "max_distance",
         "xyz_kernel", "rgb_kernel", "kernel_weight",
@@ -74,15 +62,15 @@ def _stream_step(
     depth_mm,  # [B, H, W] uint16
     kinv, rot, trans,  # [B, 3, 3] x2, [B, 3]
     d_min, d_max,
-    meta, thresholds, level_offsets, level_chunks, leaf_hist,
+    records, leaf_hist,
     clouds,  # [Mb, N, 3]
     cloud_rgb,  # [N, 3] (shared) or [Mb, N, 3]
     pose_packed,  # [Mb, K, C3, 3, 4]
     intrinsics,  # [C3, 3, 3]
     *,
     stride, patch_size, reduce_size, use_color_patch, use_depth,
-    use_height, use_normal, num_levels, feat_bits, class_counts,
-    fill_value, out_h, out_w,
+    use_height, use_normal, max_depth, feat_bits, descent, interpret,
+    class_counts, fill_value, out_h, out_w,
     map_every: int, maps_per_batch: int, num_points: int,
     blocks: Tuple[int, ...], m_bucket: int, n_iterations: int,
     unknown_labels: Tuple[int, ...],
@@ -91,15 +79,14 @@ def _stream_step(
 ):
     """The fused step. Returns (frame_labels per frame per layer,
     map_labels per map per layer, vertex counts per map)."""
-    outs = _batch_frame_impl_pallas(
-        rgb, depth_mm, kinv, rot, trans, d_min, d_max,
-        meta, thresholds, level_offsets, level_chunks, leaf_hist,
+    outs = _frame_batch_impl(
+        rgb, depth_mm, kinv, rot, trans, d_min, d_max, records, leaf_hist,
         stride=stride, patch_size=patch_size, reduce_size=reduce_size,
         use_color_patch=use_color_patch, use_depth=use_depth,
         use_height=use_height, use_normal=use_normal,
-        num_levels=num_levels, feat_bits=feat_bits,
-        class_counts=class_counts, fill_value=fill_value,
-        out_h=out_h, out_w=out_w,
+        max_depth=max_depth, feat_bits=feat_bits, descent=descent,
+        interpret=interpret, class_counts=class_counts,
+        fill_value=fill_value, out_h=out_h, out_w=out_w,
     )
     frame_labels = [la for _, la in outs]
     map_labels, m_counts = [], []
@@ -147,8 +134,6 @@ class StreamingPipeline:
         map_pipeline: LocalMapPipeline,
         map_every: int,
     ):
-        if not frame_pipeline.use_pallas and jax.default_backend() == "tpu":
-            raise ValueError("streaming needs the batched (Pallas) frame path")
         if not map_pipeline.crf.use_dense_crf:
             raise ValueError("streaming fuses the dense-CRF map path")
         self.frames = frame_pipeline
@@ -182,26 +167,14 @@ class StreamingPipeline:
                 "map through LocalMapPipeline first"
             )
         mp._drain_overflow_flags()
-        pp = fp.pallas_predictor
-        if pp is None:  # off-TPU the kernel interprets; build lazily
-            from .single_frame import PallasForestPredictor
-
-            pp = fp.pallas_predictor = PallasForestPredictor(fp._forest)
         frame_labels, map_labels, m_counts = _stream_step(
             jnp.asarray(rgb_stack), jnp.asarray(depth_stack),
             jnp.asarray(kinv), jnp.asarray(rot), jnp.asarray(trans),
             jnp.float32(cfg.d_min), jnp.float32(cfg.d_max),
-            pp.meta, pp.thresholds, pp.level_offsets, pp.level_chunks,
-            pp.leaf_hist,
+            fp.predictor.records, fp.predictor.leaf_hist,
             jnp.asarray(clouds), jnp.asarray(cloud_rgb),
             jnp.asarray(pose_packed), mp._intr_dev,
-            stride=fp.stride, patch_size=cfg.patch_size,
-            reduce_size=cfg.patch_size_reduce,
-            use_color_patch=cfg.use_color_patch, use_depth=cfg.use_depth,
-            use_height=cfg.use_height, use_normal=cfg.use_normal,
-            num_levels=pp.lm.num_levels, feat_bits=pp.lm.feat_bits,
-            class_counts=fp.class_counts, fill_value=fp.fill_value,
-            out_h=h, out_w=w,
+            **fp.frame_statics(h, w),
             map_every=self.map_every, maps_per_batch=maps_per_batch,
             num_points=n, blocks=tuple(mp.class_counts),
             m_bucket=mp._m_bucket, n_iterations=mp.crf.iterations,

@@ -313,7 +313,7 @@ class Segmenter:
         dispatch (DP over keyframes, SURVEY.md 2.5) — the serving analogue
         of the reference's one-frame-at-a-time worker loop
         (segmenter.cpp:323-443) that amortizes dispatch latency and fills
-        the chip when inference falls behind the camera rate.
+        the card when inference falls behind the camera rate.
         """
         for i, cam in enumerate(self._cameras_in_order):
             with self._frame_lock:
@@ -321,7 +321,7 @@ class Segmenter:
                     continue
                 avail = len(self._image_queues[i])
                 batch = 1
-                if self._external is None and self._frame_pipeline.use_pallas:
+                if self._external is None:
                     batch = next(b for b in self._BATCH_LADDER if b <= avail)
                 popped = [
                     self._image_queues[i].popleft() for _ in range(batch)
@@ -336,7 +336,7 @@ class Segmenter:
                 result = self._frame_pipeline.run(rgb, depth, calib)
                 # Keep posteriors on device: the fusion stage consumes them
                 # there (accumulate_unaries); pulling ~20MB per frame to the
-                # host would waste PCIe/tunnel bandwidth.
+                # host would waste PCIe bandwidth.
                 posteriors = [list(result.posteriors)]
                 seqs = [seq]
             else:

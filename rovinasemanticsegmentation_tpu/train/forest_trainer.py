@@ -1,6 +1,6 @@
 """Random-forest training: breadth-first, sort-based exact split search.
 
-TPU-native re-design of the libforest learners
+Array re-design of the libforest learners
 (``/root/reference/third-party/libforest/src/learning.cpp:363-1113``,
 ``include/libforest/learning.h:107-456``). The reference grows each tree
 depth-first with per-node std::sort over its examples; here every frontier
@@ -81,8 +81,8 @@ class TrainerConfig:
     # many dataset-wide quantile bins per feature (build_feature_bins).
     # Candidates restrict to global bin boundaries — statistically
     # equivalent splits (XGBoost-style global sketch; near-exact for the
-    # 363/366 integer-valued Lab features), MUCH faster on TPU where a
-    # sort costs ~50x a scatter at these sizes. 0 = exact mode.
+    # 363/366 integer-valued Lab features); a histogram scatter replaces
+    # the per-slot sorts. 0 = exact mode.
     split_bins: int = 0
 
     @classmethod
@@ -140,10 +140,9 @@ def split_search_step(
     )
     active = sorted_seg < num_segments
 
-    # Class prefix machinery in [C, Ns] layout — classes on sublanes, the
-    # sorted stream on lanes. A [Ns, C] layout spends 9 of 128 lanes on
-    # every op; transposed, the stream cumsum is a lane-wise two-level
-    # prefix (in-vreg cumsum + row-total carry) like the CRF splat.
+    # Class prefix machinery in [C, Ns] layout, the sorted stream as the
+    # minor axis; the stream cumsum is a two-level prefix (cumsums within
+    # 128-element rows + a carry of row totals) like the CRF splat.
     onehot_t = (
         (sorted_cls[None, :] == jnp.arange(num_classes)[:, None])
         & active[None, :]
@@ -163,8 +162,8 @@ def split_search_step(
     start_idx = jax.lax.cummax(jnp.where(is_start, idx, 0))
     left_t = cum_excl_t - jnp.take(cum_excl_t, start_idx, axis=1)  # [C, Ns]
 
-    # Segment totals WITHOUT a scatter (TPU scatters cost ~25 ns/row; the
-    # stream is already segment-sorted): the inclusive prefix at each
+    # Segment totals WITHOUT a scatter (the stream is already
+    # segment-sorted): the inclusive prefix at each
     # segment's LAST element minus at its start. End positions flow
     # backwards with a reversed cummax.
     next_seg = jnp.concatenate([sorted_seg[1:], jnp.full((1,), -2, jnp.int32)])
@@ -218,8 +217,8 @@ def split_search_step(
     )
     seg_ids = jnp.arange(num_segments, dtype=jnp.int32)
     # Last element of each segment id (or 0 if the segment is empty).
-    # method="sort" — the default scan-based binary search costs ~1.6 ms
-    # per call on TPU (17 tiny scan steps); a merge sort is ~free.
+    # method="sort": one merge sort instead of the default scan-based
+    # binary search's 17 dependent tiny scan steps.
     pos = jnp.searchsorted(
         sorted_seg, seg_ids, side="right", method="sort"
     ).astype(jnp.int32)
@@ -251,13 +250,11 @@ def multi_slot_split_search(
     """All K feature slots of one level in a single device step.
 
     The slots ride a ``lax.scan`` (sequential on device, ONE small slot
-    body): vmapping doubles the per-slot cost on TPU (batched sorts/scans
-    lay out worse — 9.1 vs 4.3 ms measured) and unrolling K = 20 bodies
-    makes a graph whose compile/load costs ~30 s PER frontier bucket PER
-    PROCESS. The per-example values for ALL slots ride one batched
-    [Ns, K] take_along_axis up front (~26 ms for K = 20 at 100k examples
-    — a one-hot-matmul alternative materializes [Ns, F] per slot, which
-    explodes at wide frontiers).
+    body): unrolling K = 20 bodies makes a graph whose compile grows with
+    K for every frontier bucket; whether a vmap over slots is faster on
+    the GPU is not measured. The per-example values for ALL slots ride one
+    batched [Ns, K] take_along_axis up front (a one-hot-matmul alternative
+    materializes [Ns, F] per slot, which explodes at wide frontiers).
     """
     seg_c = jnp.minimum(seg, num_segments - 1)
     feat_all = jnp.take(feats, seg_c, axis=0)  # [Ns, K]
@@ -347,8 +344,8 @@ def _binned_slot_search(
     entropy sweep and per-node argmin mirror :func:`split_search_step`'s
     objective (learning.cpp:563-600) over the boundary candidate set.
     Returns (objective [F], boundary index [F], left/right mass [F]).
-    Layout [F, C, B]: bins ride the 128-lane axis (C = 9 would waste
-    119 of 128 lanes there), and the bin cumsum is a lane-wise prefix.
+    Layout [F, C, B]: bins are the minor axis, which the cumsum runs
+    along.
     """
     f, c, b = num_segments, num_classes, num_bins
     active = seg < f
@@ -786,10 +783,10 @@ def node_stats_step(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """(mass [F], distinct-class count per layer [F, L]) for stop checks.
 
-    Scatter-free: the old ``counts.at[seg].add(onehot)`` cost ~25 ns/row
-    (2.5 ms at 100k examples, every level); a segment sort plus the same
-    two-level lane cumsum as :func:`split_search_step` makes the per-slot
-    class counts pure prefix differences read out at segment boundaries.
+    Scatter-free: a segment sort plus the same two-level cumsum as
+    :func:`split_search_step` makes the per-slot class counts pure prefix
+    differences read out at segment boundaries, instead of a
+    ``counts.at[seg].add(onehot)`` scatter.
     """
     ns = seg.shape[0]
     ns_pad = -(-ns // 128) * 128
@@ -799,8 +796,7 @@ def node_stats_step(
     sorted_seg = sorted_all[0]
     active = sorted_seg < num_segments
 
-    # [L*C, Ns] one-hot with layers*classes on sublanes, the sorted
-    # stream on lanes.
+    # [L*C, Ns] one-hot, the sorted stream as the minor axis.
     onehot_t = jnp.concatenate(
         [
             (

@@ -116,7 +116,7 @@ def rgb_to_segment_id(rgb: np.ndarray) -> np.ndarray:
 
 # ----------------------------------------------------------------------
 # Debug visualization helpers. The reference pops interactive windows
-# (ShowCvMat/ShowCvMatHeatMap, cv_util.cpp:77-81,145-154); headless TPU hosts
+# (ShowCvMat/ShowCvMatHeatMap, cv_util.cpp:77-81,145-154); headless hosts
 # write files instead.
 # ----------------------------------------------------------------------
 

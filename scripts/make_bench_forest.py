@@ -1,9 +1,9 @@
 """Train the bench fixture forest (VERDICT round-1 item #3).
 
-The round-1 bench used ``random_forest`` with N(0,1) thresholds on random
-features; the descent kernel's early exit and the patch kernel's per-block
-h-sets are data-dependent, so the bench must run a forest whose leaf-depth
-distribution comes from actual training. This script:
+A ``random_forest`` with N(0,1) thresholds on random features has a
+leaf-depth distribution no trained forest has, and the descent's cost
+follows that distribution, so the bench runs a forest that was actually
+trained. This script:
 
 1. renders synthetic indoor-style RGB-D frames (same generator as bench.py),
 2. extracts real 366-dim features at the reference's training stride 5
@@ -15,7 +15,8 @@ distribution comes from actual training. This script:
    ``resources/config.json:37-39``) with the production trainer,
 5. writes ``resources/bench_forest.dat`` in the reference binary format.
 
-Run once; bench.py loads the fixture when present.
+Run once (``python scripts/make_bench_forest.py``); bench.py and
+chip_smoke.py load the fixture.
 """
 
 import os
@@ -31,22 +32,6 @@ TRAIN_STRIDE = 5
 N_FRAMES = 12
 
 
-def make_depth(r):
-    ys, xs = np.mgrid[0:H, 0:W]
-    depth = (
-        3000.0
-        + 1500.0 * np.sin(xs / W * np.pi * r.uniform(0.5, 2.0))
-        + 1000.0 * (ys / H) * r.uniform(0.5, 3.0)
-    )
-    for _ in range(6):
-        y0, x0 = r.integers(0, H - 80), r.integers(0, W - 120)
-        bh, bw = r.integers(60, 180), r.integers(80, 240)
-        depth[y0 : y0 + bh, x0 : x0 + bw] = r.uniform(700, 2500)
-    depth += r.normal(0, 15, (H, W))
-    depth[r.random((H, W)) < 0.02] = 0
-    return np.clip(depth, 0, 15500).astype(np.uint16)
-
-
 def make_rgb(r, depth):
     """Color loosely correlated with depth structure (smooth + patches)."""
     base = (depth.astype(np.float32) / 15500.0 * 200.0)[..., None]
@@ -59,15 +44,11 @@ def make_rgb(r, depth):
 
 
 def main() -> None:
-    from rovinasemanticsegmentation_tpu.utils import tpu_lock
+    from rovinasemanticsegmentation_tpu.utils.compile_cache import (
+        setup_compile_cache,
+    )
 
-    if not tpu_lock.acquire():
-        print("tpu_lock: held past timeout; aborting", file=sys.stderr)
-        raise SystemExit(3)
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_ccache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    import jax.numpy as jnp
+    setup_compile_cache()
 
     from rovinasemanticsegmentation_tpu.features.extractor import (
         ExtractType,
@@ -79,19 +60,18 @@ def main() -> None:
         ForestTrainer,
         TrainerConfig,
     )
-    from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
+    from rovinasemanticsegmentation_tpu.utils.synthetic import (
+        make_depth,
+        vga_calibration,
+    )
 
     rng = np.random.default_rng(42)
-    calib = Calibration(
-        intrinsic=np.array([[525.0, 0, 320], [0, 525.0, 240], [0, 0, 1]]),
-        rotation=np.eye(3),
-        translation=np.zeros(3),
-    )
+    calib = vga_calibration(H, W)
     extractor = FeatureExtractor(FeatureConfig())
 
     feats_all, labels_all = [], []
     for fi in range(N_FRAMES):
-        depth = make_depth(rng)
+        depth = make_depth(rng, H, W)
         rgb = make_rgb(rng, depth)
 
         # Material layer (8 classes) from geometry: height bands + depth

@@ -1,6 +1,6 @@
 // Cross-parity driver: trains and evaluates the REFERENCE libforest
 // (compiled from /root/reference/third-party/libforest, unmodified) on a raw
-// binary dataset, dumping forest.dat and per-point log-posteriors so the TPU
+// binary dataset, dumping forest.dat and per-point log-posteriors so the JAX
 // rebuild's codec, descent kernel, and trainer can be validated against the
 // original C++:
 //   - descent/posterior semantics: classifier.cpp:97-131,166-208
@@ -15,7 +15,7 @@
 //           then N*L int32 labels. L==1 -> single-label mode, else multi.
 // post.bin: int32 N, L, C_0..C_{L-1}; then per point, per layer, C_l float32.
 //
-// This file is ORIGINAL code for the TPU rebuild's test suite (it plays the
+// This file is ORIGINAL code for the JAX rebuild's test suite (it plays the
 // role of libforest's example/main.cpp without reusing it).
 
 #include <chrono>

@@ -2,9 +2,9 @@
 
 This closes the loop the codec unit tests cannot: a ``forest.dat`` produced
 by the ORIGINAL C++ (classifier.cpp:210-235 via io.h:34-108) is cross-loaded
-by the TPU rebuild, per-point log-posteriors are compared against the
+by the JAX rebuild, per-point log-posteriors are compared against the
 original ``classLogPosterior``/``multiClassLogPosterior``
-(classifier.cpp:119-131,166-208), and the breadth-first TPU trainer is
+(classifier.cpp:119-131,166-208), and the breadth-first device trainer is
 compared trainer-vs-trainer on a held-out split against the original
 DecisionTreeLearner/RandomForestLearner (learning.cpp:363-1113).
 
@@ -210,7 +210,7 @@ class TestCrossLoad:
 
     @pytest.mark.slow
     def test_trainer_vs_trainer_heldout_accuracy(self, driver, tmp_path):
-        """(c) the TPU breadth-first learner reaches the C++ learner's
+        """(c) the breadth-first device learner reaches the C++ learner's
         held-out accuracy on the same data (learning.cpp:412-662 vs
         train/forest_trainer.py); split choices differ (random layers,
         bootstrap), so compare metrics, not trees."""

@@ -287,39 +287,71 @@ class TestLattice:
         )
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
-    def test_hash_neighbors_match_sort(self, features):
-        """_blur_neighbors_hash == _blur_neighbors_sort bit-for-bit: a hash
-        hit requires full packed-key equality and a miss an EMPTY slot, so
-        the two variants must agree on every (axis, vertex) pair."""
+    @pytest.mark.parametrize("scale,seed", [(1.0, 0), (0.05, 7)])
+    def test_sort_neighbors_match_key_lookup(self, features, scale, seed):
+        """_blur_neighbors_sort against a dictionary of the unique vertex
+        keys: n1 along axis j is the key with coordinate j + d and every
+        other coordinate - 1, n2 the opposite; absent keys are the missing
+        slot. Sparse and duplicate-heavy point sets."""
         from rovinasemanticsegmentation_tpu.models.lattice import (
-            _blur_neighbors_hash,
             _blur_neighbors_sort,
             _dedup_sorted,
             _embed_simplex,
             _pack_keys16,
         )
 
-        for scale, seed in ((1.0, 0), (0.05, 7)):  # sparse + dup-heavy
-            rng = np.random.default_rng(seed)
-            feats = (
-                rng.normal(size=features.shape).astype(np.float32) * scale
-            )
-            n, d = feats.shape
-            d1 = d + 1
-            s = n * d1
-            spad = -(-s // 128) * 128
-            keys, bary = _embed_simplex(jnp.asarray(feats))
-            kflat = keys.reshape(s, d)
-            packs = _pack_keys16(kflat, d)
-            m_bucket = 1 << 12
-            *_, m, uq, ucoord = _dedup_sorted(
-                packs, kflat, bary, n, d, m_bucket, spad
-            )
-            assert int(m) <= m_bucket
-            s1, s2 = _blur_neighbors_sort(uq, ucoord, m, m_bucket, d)
-            h1, h2 = _blur_neighbors_hash(uq, ucoord, m, m_bucket, d)
-            np.testing.assert_array_equal(np.asarray(s1), np.asarray(h1))
-            np.testing.assert_array_equal(np.asarray(s2), np.asarray(h2))
+        rng = np.random.default_rng(seed)
+        feats = rng.normal(size=features.shape).astype(np.float32) * scale
+        n, d = feats.shape
+        s = n * (d + 1)
+        spad = -(-s // 128) * 128
+        keys, bary = _embed_simplex(jnp.asarray(feats))
+        kflat = keys.reshape(s, d)
+        m_bucket = 1 << 12
+        *_, m, uq, ucoord = _dedup_sorted(
+            _pack_keys16(kflat, d), kflat, bary, n, d, m_bucket, spad
+        )
+        m = int(m)
+        assert m <= m_bucket
+        coords = np.stack([np.asarray(c)[:m] for c in ucoord], axis=1)
+        slot = {tuple(k): i for i, k in enumerate(coords.tolist())}
+        assert len(slot) == m
+        n1, n2 = (np.asarray(a) for a in
+                  _blur_neighbors_sort(uq, ucoord, m, m_bucket, d))
+        for j in range(d + 1):
+            step = np.full(d, -1)
+            if j < d:
+                step[j] = d
+            for table, sign in ((n1, 1), (n2, -1)):
+                want = [slot.get(tuple(k), m_bucket)
+                        for k in (coords + sign * step).tolist()]
+                np.testing.assert_array_equal(table[j, :m], want)
+        assert (n1[:, m:] == m_bucket).all() and (n2[:, m:] == m_bucket).all()
+
+    @pytest.mark.parametrize("c,s,m,seed", [
+        (1, 300, 40, 0),      # one channel, segments with gaps and empties
+        (17, 1000, 128, 1),   # the map path's 8 + 9 channels
+        (3, 128, 1, 2),       # a single segment over the whole stream
+    ])
+    def test_segment_sum_sorted_matches_exact(self, c, s, m, seed):
+        """segment_sum_sorted_t against a float64 per-segment sum, with
+        empty segments (start == end) and rows no segment covers."""
+        from rovinasemanticsegmentation_tpu.models.lattice import (
+            segment_sum_sorted_t,
+        )
+
+        rng = np.random.default_rng(seed)
+        x = rng.random((c, s)).astype(np.float32)
+        cuts = np.sort(rng.integers(0, s + 1, size=2 * m))
+        starts, ends = cuts[0::2], cuts[1::2]
+        empty = rng.random(m) < 0.2
+        starts[empty] = ends[empty]
+        got = np.asarray(segment_sum_sorted_t(
+            jnp.asarray(x), jnp.asarray(starts, jnp.int32),
+            jnp.asarray(ends, jnp.int32)))
+        want = np.stack([x[:, a:b].astype(np.float64).sum(axis=1)
+                         for a, b in zip(starts, ends)], axis=1)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
     def test_gaussian_behavior(self):
         # Identical features -> filter approximately sums everything

@@ -20,8 +20,10 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from rovinasemanticsegmentation_tpu.ops.color import rgb_to_lab8
-from rovinasemanticsegmentation_tpu.ops.patches import reflect_pad_image
-from rovinasemanticsegmentation_tpu.ops.patches_scan import extract_patches_scan
+from rovinasemanticsegmentation_tpu.ops.patches import (
+    extract_patches_grid,
+    reflect_pad_image,
+)
 from rovinasemanticsegmentation_tpu.ops.resize import (
     resize_bilinear,
     resize_bilinear_u8,
@@ -114,7 +116,7 @@ class TestPatchPipelineVsOpenCV:
         depth = rng.uniform(0.6, 12.0, ( -(-h // stride), -(-w // stride))
                             ).astype(np.float32)
         padded = np.asarray(reflect_pad_image(jnp.asarray(lab), b))
-        got = np.asarray(extract_patches_scan(
+        got = np.asarray(extract_patches_grid(
             jnp.asarray(padded), jnp.asarray(depth),
             patch_size=b, reduce_size=r, stride=stride))
 

@@ -183,35 +183,30 @@ class TestDistanceTransform:
             want = oracle_dt(mask)
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
-    @pytest.mark.parametrize("variant", ["banded", "iter"])
-    def test_saturated_matches_full(self, variant):
-        """Both saturated chamfer variants clamp identically to the full
-        sequential passes wherever the value is consumed (outside the
-        top/bottom border of ceil(sat) rows; smoothing clamps at the
-        saturation) — at EVERY column, including the never-relaxed 0/w-1."""
+    @pytest.mark.parametrize(
+        "shape,p,sat", [((60, 70), 0.01, 10.0), ((45, 33), 0.03, 6.0)]
+    )
+    def test_saturated_matches_full(self, shape, p, sat):
+        """The saturated chamfer clamps identically to the full sequential
+        passes wherever the value is consumed (outside the top/bottom
+        border of ceil(sat) rows; smoothing clamps at the saturation) — at
+        EVERY column, including the never-relaxed 0/w-1."""
         from rovinasemanticsegmentation_tpu.ops.normals import (
             chamfer_distance_map,
         )
 
         rng = np.random.default_rng(4)
-        for shape, p, sat in [((60, 70), 0.01, 10.0), ((45, 33), 0.03, 6.0)]:
-            mask = rng.random(shape) < p
-            mask[3, 5] = True
-            full = np.minimum(
-                np.asarray(chamfer_distance_map(jnp.asarray(mask))), sat
-            )
-            got = np.minimum(
-                np.asarray(
-                    chamfer_distance_map(
-                        jnp.asarray(mask), saturation=sat, variant=variant
-                    )
-                ),
-                sat,
-            )
-            b = int(np.ceil(sat))
-            np.testing.assert_allclose(
-                got[b:-b], full[b:-b], rtol=1e-5, atol=1e-5
-            )
+        mask = rng.random(shape) < p
+        mask[3, 5] = True
+        full = np.minimum(
+            np.asarray(chamfer_distance_map(jnp.asarray(mask))), sat
+        )
+        got = np.minimum(
+            np.asarray(chamfer_distance_map(jnp.asarray(mask), saturation=sat)),
+            sat,
+        )
+        b = int(np.ceil(sat))
+        np.testing.assert_allclose(got[b:-b], full[b:-b], rtol=1e-5, atol=1e-5)
 
     def test_saturated_iter_edge_seeds(self):
         """Change pixels ON the never-relaxed columns/rows must still seed
@@ -231,7 +226,7 @@ class TestDistanceTransform:
         it = np.minimum(
             np.asarray(
                 chamfer_distance_map(
-                    jnp.asarray(mask), saturation=sat, variant="iter"
+                    jnp.asarray(mask), saturation=sat
                 )
             ),
             sat,
@@ -459,86 +454,43 @@ class TestNormalsGridPath:
             grid = np.asarray(normal_angles_grid(jnp.asarray(pts), s))
             np.testing.assert_allclose(grid, full[::s, ::s], rtol=1e-5, atol=1e-6)
 
-    @pytest.mark.slow  # per-variant saturated_matches_full cases stay fast
-    def test_chamfer_variants_agree_end_to_end(self):
-        """normal_angles_grid under the two saturated chamfer variants:
-        the -2 masks must agree exactly; angles agree except where the two
-        variants' f32 path-cost accumulation orders land an ulp apart
-        across an integer rect boundary (the same slack the PCL oracle
-        comparison tolerates — neither order is 'the' PCL one)."""
-        from rovinasemanticsegmentation_tpu.ops.normals import (
-            normal_angles_grid,
-        )
 
-        rng = np.random.default_rng(13)
-        h, w = 64, 72
-        ys, xs = np.mgrid[0:h, 0:w]
-        z = 2.0 + 0.01 * xs + 0.004 * ys + 0.002 * rng.standard_normal((h, w))
-        pts = np.stack([xs * 0.01, ys * 0.01, z], -1).astype(np.float32)
-        pts[20:24, 30:36] = np.nan
-        pts[:, 50:] += 1.0
-        for s in (1, 2):
-            a = np.asarray(
-                normal_angles_grid(jnp.asarray(pts), s, chamfer_variant="iter")
-            )
-            b = np.asarray(
-                normal_angles_grid(
-                    jnp.asarray(pts), s, chamfer_variant="banded"
-                )
-            )
-            np.testing.assert_array_equal(a == -2.0, b == -2.0)
-            diff = np.abs(a - b)
-            loose = diff > 2e-3
-            assert loose.mean() <= 0.005 and diff.max() < 0.05, (
-                f"{loose.sum()} pixels beyond tolerance, worst {diff.max()}"
-            )
+class TestPatchesGrid:
+    """The extractor's patch stage (the per-point gather over the whole
+    stride grid) against the NumPy crop-and-resize oracle, including
+    masked points (depth 0 -> the h=0 window) and grids whose last row and
+    column sit past the image's stride multiple."""
 
-
-class TestPatchesPallasParity:
-    """The Pallas block-local kernel (interpret mode on CPU) must be
-    bit-exact with the dense-slice scan across strides and edge shapes."""
-
-    def _compare(self, b, r, s, h, w, seed, rows_per_program=8):
-        from rovinasemanticsegmentation_tpu.ops.patches_pallas import (
-            extract_patches_pallas,
-        )
-        from rovinasemanticsegmentation_tpu.ops.patches_scan import (
-            extract_patches_scan,
+    @pytest.mark.parametrize("b,r,s,h,w,seed", [
+        (9, 5, 2, 32, 48, 0),
+        (7, 3, 1, 17, 33, 1),
+        (11, 11, 4, 24, 40, 2),
+        (9, 5, 2, 35, 47, 3),
+    ])
+    def test_matches_oracle(self, b, r, s, h, w, seed):
+        from rovinasemanticsegmentation_tpu.ops.patches import (
+            extract_patches_grid,
         )
 
         rng = np.random.default_rng(seed)
-        lab = rng.integers(0, 256, (h + 2 * b, w + 2 * b, 3), dtype=np.uint8)
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        padded = np.asarray(reflect_pad_image(jnp.asarray(img), b))
         gh, gw = -(-h // s), -(-w // s)
-        depth = rng.uniform(0.3, 8.0, (gh, gw)).astype(np.float32)
+        # Depth >= 0.6 m keeps half = b / (2 d) below the border b.
+        depth = rng.uniform(0.6, 8.0, (gh, gw)).astype(np.float32)
         depth[rng.random((gh, gw)) < 0.15] = 0.0
         got = np.asarray(
-            extract_patches_pallas(
-                jnp.asarray(lab), jnp.asarray(depth),
-                patch_size=b, reduce_size=r, stride=s, interpret=True,
-                rows_per_program=rows_per_program,
-            )
-        )
-        want = np.asarray(
-            extract_patches_scan(
-                jnp.asarray(lab), jnp.asarray(depth),
+            extract_patches_grid(
+                jnp.asarray(padded), jnp.asarray(depth),
                 patch_size=b, reduce_size=r, stride=s,
             )
         )
-        neq = (got != want) & (depth > 0)[:, :, None, None, None]
-        assert not neq.any()
-
-    def test_stride2(self):
-        self._compare(9, 5, 2, 32, 48, 0)
-
-    def test_stride1(self):
-        self._compare(7, 3, 1, 17, 33, 1)
-
-    @pytest.mark.slow  # stride-2 + row-block parity cases stay fast
-    def test_stride4_full_reduce(self):
-        self._compare(11, 11, 4, 24, 40, 2)
-
-    @pytest.mark.parametrize("rp", [16, 32])
-    def test_multi_row_blocks(self, rp):
-        """Bigger row blocks (fewer DMAs, wider column-stage ops) must stay
-        bit-exact, including when gh is not a block multiple."""
-        self._compare(9, 5, 2, 70, 48, 3, rows_per_program=rp)
+        assert got.shape == (gh, gw, r, r, 3)
+        oracle = TestPatches()._oracle_patch
+        for gy in range(gh):
+            for gx in range(gw):
+                d = float(depth[gy, gx])
+                if d <= 0:
+                    continue
+                want = oracle(padded, gx * s, gy * s, d, b, r)
+                np.testing.assert_array_equal(got[gy, gx], want)

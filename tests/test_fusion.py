@@ -475,7 +475,6 @@ class TestStreamingPipeline:
         )
         fp = SingleFramePipeline(
             FeatureConfig(), forest, stride=2, fill_value=0.0,
-            use_pallas=True,
         )
         mp = LocalMapPipeline(
             proj, [3, 4], [2, 3],

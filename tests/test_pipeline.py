@@ -77,7 +77,8 @@ class TestSingleFrame:
 
 
 class TestBatchedFrames:
-    def test_batch_matches_per_frame(self):
+    @pytest.mark.parametrize("b", [1, 2, 3])
+    def test_batch_matches_per_frame(self, b):
         """The B-frames-per-dispatch path is bit-identical to run()."""
         rng = np.random.default_rng(7)
         forest = random_forest(
@@ -85,16 +86,14 @@ class TestBatchedFrames:
             class_counts=[8, 9], max_nodes=201,
         )
         cfg = FeatureConfig(patch_size=15, patch_size_reduce=5)
-        # Force the Pallas path (interpret mode off-TPU) so the batched
-        # impl actually runs instead of the per-frame fallback.
-        pipe = SingleFramePipeline(cfg, forest, stride=2, use_pallas=True)
-        frames = [frame(seed=s) for s in (1, 2, 3)]
+        pipe = SingleFramePipeline(cfg, forest, stride=2)
+        frames = [frame(seed=s) for s in range(1, b + 1)]
         batch = pipe.run_batch(
             [f[0] for f in frames],
             [f[1] for f in frames],
             [f[2] for f in frames],
         )
-        assert len(batch) == 3
+        assert len(batch) == b
         for (rgb, depth, calib), got in zip(frames, batch):
             want = pipe.run(rgb, depth, calib)
             for l in range(2):

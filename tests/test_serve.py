@@ -174,28 +174,17 @@ class TestSegmenterRuntime:
     @pytest.mark.slow  # batch==per-frame parity stays fast in test_batch_matches_per_frame
     def test_batched_frame_worker_matches_single(self):
         """Backlogged queues ride run_batch; results identical per frame."""
-        from rovinasemanticsegmentation_tpu.pipelines.single_frame import (
-            SingleFramePipeline,
-        )
 
         def build(batched):
             seg = make_segmenter()
             seg.initialize_projector(["camera_front"], [make_calib()], (H, W))
             seg.stop()
-            if batched:
-                # Force the Pallas (interpret off-TPU) pipeline so the
-                # batch ladder actually engages.
-                seg._frame_pipeline = SingleFramePipeline(
-                    seg.feature_config,
-                    seg._forest,
-                    stride=seg.rf_prediction_stride,
-                    fill_value=0.0,
-                    use_pallas=True,
-                )
             for s in range(1, 5):
                 push_frame(seg, s, seed=s)
                 assert seg.on_new_node(MapNode(s, pose_at(0.2 * s), [s]))
-            # Drain: batched path takes one 4-frame dispatch.
+                if not batched:  # one frame in the queue: one per dispatch
+                    assert seg._process_one_frame()
+            # Drain: the batched build takes one 4-frame dispatch.
             while seg._process_one_frame():
                 pass
             return [

@@ -235,47 +235,28 @@ class TestDebugViz:
         assert g[0, 0, 0] == 0 and g[2, 3, 0] == 255
 
 
-class TestTuning:
-    """utils/tuning.py: the measured-variant registry experiment scripts
-    write and production hot paths read (env > TUNING.json > default)."""
+class TestSyntheticCloud:
+    """utils/synthetic.make_cloud: map points lie on the keyframes'
+    surfaces and reproject to pixel centres, never onto the pixel edges
+    where the projector's int() truncation would be a rounding tie."""
 
-    def _fresh(self, tmp_path, monkeypatch):
-        from rovinasemanticsegmentation_tpu.utils import tuning
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_points_reproject_to_pixel_centres(self, seed):
+        from rovinasemanticsegmentation_tpu.utils.synthetic import (
+            FOCAL,
+            make_cloud,
+            make_frames,
+        )
 
-        monkeypatch.setattr(tuning, "_PATH", str(tmp_path / "TUNING.json"))
-        monkeypatch.setattr(tuning, "_cache", None)
-        return tuning
-
-    def test_default_when_absent(self, tmp_path, monkeypatch):
-        t = self._fresh(tmp_path, monkeypatch)
-        assert t.get("descent_transpose", False) is False
-        assert t.get("patches_rows_per_program", 8) == 8
-        assert t.snapshot() == {}
-
-    def test_record_then_get_and_snapshot(self, tmp_path, monkeypatch):
-        t = self._fresh(tmp_path, monkeypatch)
-        t.record("descent_transpose", True, {"baseline_ms": 11.9})
-        t.record("chamfer_variant", "iter")
-        assert t.get("descent_transpose", False) is True
-        assert t.get("chamfer_variant", "banded") == "iter"
-        assert t.snapshot() == {
-            "descent_transpose": True, "chamfer_variant": "iter",
-        }
-        # A fresh process (cache cleared) reads the same file.
-        monkeypatch.setattr(t, "_cache", None)
-        assert t.get("descent_transpose", False) is True
-        import json
-
-        data = json.load(open(t._PATH))
-        assert data["descent_transpose"]["evidence"]["baseline_ms"] == 11.9
-
-    def test_env_overrides_file(self, tmp_path, monkeypatch):
-        t = self._fresh(tmp_path, monkeypatch)
-        t.record("descent_transpose", True)
-        t.record("patches_rows_per_program", 32)
-        monkeypatch.setenv("ROVINA_DESCENT_TRANSPOSE", "0")
-        monkeypatch.setenv("ROVINA_PATCHES_ROWS_PER_PROGRAM", "16")
-        monkeypatch.setenv("ROVINA_CHAMFER_VARIANT", "banded")
-        assert t.get("descent_transpose", False) is False
-        assert t.get("patches_rows_per_program", 8) == 16
-        assert t.get("chamfer_variant", "iter") == "banded"
+        rng = np.random.default_rng(seed)
+        frames = make_frames(rng, 2, 96, 128)
+        offsets = [np.array([0.1 * f, 0.0, 0.0]) for f in range(2)]
+        pts, rgb = make_cloud(rng, frames, 100, offsets=offsets)
+        assert pts.shape == (100, 3) and rgb.shape == (100, 3)
+        assert rgb.min() >= 0.0 and rgb.max() <= 1.0
+        for f, sl in enumerate((slice(0, 50), slice(50, 100))):
+            cam = pts[sl].astype(np.float64) - offsets[f]
+            u = FOCAL * cam[:, 0] / cam[:, 2] + 64
+            v = FOCAL * cam[:, 1] / cam[:, 2] + 48
+            for c in (u, v):
+                np.testing.assert_allclose(c - np.floor(c), 0.5, atol=1e-3)
